@@ -1,0 +1,136 @@
+"""TxVotePool: pending TxVotes (reference txvotepool/txvotepool.go).
+
+Semantics kept from the reference:
+- dedup key is **sha256(signature)** (:467-469) -- two votes for the same tx
+  by the same validator but different sign-bytes are distinct pool entries;
+- size / total-bytes caps checked before the cache (:198-208);
+- max single-vote size derived from the gossip msg cap (:211);
+- a cache hit records the new sender for in-pool votes, then rejects
+  (:213-228);
+- ``update(height, votes)`` pushes committed votes into the cache and
+  removes them from the pool (:329-359).
+
+The engine consumes through ``entries_from`` (a stable-cursor walk that
+does not remove: removal happens on commit/purge, like the reference's
+checkMaj23Routine walking the CList without popping).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+from ..types import TxVote, encode_tx_vote
+from ..utils.cache import LRUCache
+from ..utils.config import MempoolConfig
+from .base import IngestLogPool
+from .mempool import ErrMempoolIsFull, ErrTxInCache, ErrTxTooLarge, TxInfo
+
+UNKNOWN_PEER_ID = 0
+
+# amino overhead allowance for a wrapped vote message (reference
+# calcMaxTxSize subtracts the TxMessage envelope from MaxMsgBytes).
+_MSG_OVERHEAD = 8
+
+
+def vote_key(vote: TxVote) -> bytes:
+    """sha256(signature) -- the reference's txVoteKey (:467-469)."""
+    return vote.vote_key()
+
+
+@dataclass(slots=True)
+class _PoolVote:
+    height: int
+    vote: TxVote
+    senders: set[int] = field(default_factory=set)
+    size: int = 0  # encoded wire size, cached so removals never re-encode
+
+
+class TxVotePool(IngestLogPool):
+    def __init__(self, config: MempoolConfig, height: int = 0):
+        super().__init__()
+        self.config = config
+        self.height = height
+        self._votes: dict[bytes, _PoolVote] = self._items  # vote_key -> entry
+        self._votes_bytes = 0
+        self.cache = LRUCache(config.cache_size)
+
+    def size(self) -> int:
+        with self._mtx:
+            return len(self._votes)
+
+    # -- ingest (reference CheckTx/CheckTxWithInfo :180-261) --
+
+    def check_tx(self, vote: TxVote, tx_info: TxInfo | None = None) -> None:
+        """Raises on rejection; returns None when the vote entered the pool."""
+        with self._mtx:
+            self._ingest_locked(vote, tx_info or TxInfo(UNKNOWN_PEER_ID))
+
+    def check_tx_many(
+        self, votes: list[TxVote], tx_info: TxInfo | None = None
+    ) -> list[Exception | None]:
+        """Batched ingest: check_tx's decisions in order, errors returned
+        instead of raised, in bounded lock groups of 64 votes."""
+        tx_info = tx_info or TxInfo(UNKNOWN_PEER_ID)
+        out: list[Exception | None] = [None] * len(votes)
+        for base in range(0, len(votes), 64):
+            with self._mtx:
+                for i in range(base, min(base + 64, len(votes))):
+                    try:
+                        self._ingest_locked(votes[i], tx_info, notify=False)
+                    except (ErrMempoolIsFull, ErrTxTooLarge, ErrTxInCache) as e:
+                        out[i] = e
+                self._cond.notify_all()
+        return out
+
+    def _ingest_locked(self, vote: TxVote, tx_info: TxInfo, notify: bool = True) -> None:
+        vote_size = len(encode_tx_vote(vote))
+        if (
+            len(self._votes) >= self.config.size
+            or vote_size + self._votes_bytes > self.config.max_txs_bytes
+        ):
+            raise ErrMempoolIsFull(
+                len(self._votes), self.config.size,
+                self._votes_bytes, self.config.max_txs_bytes,
+            )
+        max_size = self.config.max_msg_bytes - _MSG_OVERHEAD
+        if vote_size > max_size:
+            raise ErrTxTooLarge(max_size, vote_size)
+        key = vote_key(vote)
+        if not self.cache.push(key):
+            entry = self._votes.get(key)
+            if entry is not None:
+                entry.senders.add(tx_info.sender_id)
+            raise ErrTxInCache()
+        self._votes[key] = _PoolVote(self.height, vote, {tx_info.sender_id}, vote_size)
+        self._log_append(key, notify)
+        self._votes_bytes += vote_size
+
+    # -- consumption --
+
+    def entries_from(self, cursor: int, limit: int = 256):
+        """Stable-cursor walk of live votes: (key, vote, height) tuples;
+        see IngestLogPool._entries_from for the cursor contract."""
+        raw, pos = self._entries_from(cursor, limit)
+        return [(k, e.vote, e.height) for k, e in raw], pos
+
+    def remove(self, keys: list[bytes]) -> None:
+        """Remove votes by key (votes that can never be added)."""
+        with self._mtx:
+            for k in keys:
+                entry = self._votes.pop(k, None)
+                if entry is not None:
+                    self._votes_bytes -= entry.size
+            self._log_compact()
+
+    # -- update on commit (reference Update :329-359) --
+
+    def update(self, height: int, votes: list[TxVote]) -> None:
+        with self._mtx:
+            self.height = height
+            for v in votes:
+                k = vote_key(v)
+                self.cache.push(k)  # committed votes stay cached
+                entry = self._votes.pop(k, None)
+                if entry is not None:
+                    self._votes_bytes -= entry.size
+            self._log_compact()

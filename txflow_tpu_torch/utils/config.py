@@ -1,0 +1,35 @@
+"""Configuration: the mempool caps and the fast-path engine's knobs.
+
+Defaults mirror tendermint v0.31.2's mempool (txvotepool/txvotepool.go:
+198-208 reads config.Mempool) and the JAX package's EngineConfig.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass
+class MempoolConfig:
+    size: int = 5000
+    max_txs_bytes: int = 1024 * 1024 * 1024  # 1GB
+    cache_size: int = 10000
+    max_msg_bytes: int = 1024 * 1024  # max gossip msg (consensus/reactor.go:28)
+
+
+@dataclass
+class EngineConfig:
+    """Fast-path aggregation engine (no reference analog; device batching).
+
+    The reference processes votes one at a time (txflow/service.go:123-166);
+    one engine step drains up to ``max_batch`` votes over at most
+    ``max_slots`` distinct txs and verifies and tallies them in one device
+    call.
+    """
+
+    max_batch: int = 16384  # votes per device step
+    max_slots: int = 4096  # concurrent in-flight txs per step
+    use_device: bool = True  # False = scalar golden verifier (debug)
+    # where the device verifier runs: "cuda" unless the caller asks for
+    # "cpu" (the plain PyTorch kernels); without CUDA, "cuda" raises
+    device: str = "cuda"
