@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # one card: build, kernels, slice
+    python3 chip_smoke.py --cross-card   # two or more cards: the kernels on each
 
 1. Builds the CUDA sources of txflow_tpu_torch/csrc with nvcc (one process
    per source, in parallel) and prints the card and the build time.
@@ -24,6 +25,11 @@
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0), and
 without CUDA the script exits 1 before printing any result.
+
+``--cross-card`` runs only the per-card check: each card keeps its own
+copy of the verify library's __constant__ base table, so K1, K2 and K3
+run on every visible card, the last card first, each held against its
+plain version on the CPU and K3 also against the golden model.
 """
 
 from __future__ import annotations
@@ -371,9 +377,15 @@ def kernel_phase(card: dict, corpus: Corpus, dev) -> list[dict]:
     ms = cuda_ms(run_tally, 50, warmup=5)
     pms = cuda_ms(lambda: tally.tally_plain(k3, slot_t, args[2], powers_t, prior_t, quorum), 20, warmup=2)
     in_range = (slot_t >= 0) & (slot_t < S)
-    contrib = torch.where(k3 & in_range, powers_t[args[2].long()], 0).to(torch.int32)
     slot_c = slot_t.long().clamp(0, S - 1)
-    lib_ms = cuda_ms(lambda: prior_t.index_add(0, slot_c, contrib) >= quorum, 50, warmup=5)
+    val_c = args[2].long()
+
+    def library_tally():  # the power gather, the mask and index_add + compare
+        contrib = torch.where(k3 & in_range, powers_t[val_c], 0)
+        return prior_t.index_add(0, slot_c, contrib) >= quorum
+
+    require(bool((library_tally().int() == maj_p).all()), "index_add tally != plain")
+    lib_ms = cuda_ms(library_tally, 50, warmup=5)
     bnd, by = bound_ms(card, nbytes(valid_i, slot_t, args[2], powers_t, prior_t, stake_k, maj_k),
                        B + S)
     rows.append(dict(name="K4 stake tally (txf_tally)", route="cuda",
@@ -437,6 +449,9 @@ def slice_phase(corpus: Corpus, dev) -> dict:
     launches = dict(_lib.launches)
     log(f"slice: {len(step_s)} steps, launches {launches}, host verifies {host_calls['n']}")
     require(launches["verify"] > 0 and launches["tally"] > 0, "a kernel of the path never ran")
+    # one timed device step per verify + tally pair: the timing wrapper saw them all
+    require(len(device_ms) == launches["verify"] == launches["tally"],
+            f"{len(device_ms)} timed device steps for launches {launches}")
     require(host_calls["n"] == 0, "a host (scalar) verify ran")
 
     # the outcome known by construction
@@ -546,6 +561,50 @@ def _time_stages(flow, dev) -> tuple[dict, list]:
     return stages, device_ms
 
 
+def cross_card_phase() -> None:
+    """K1, K2 and K3 on every visible card, the last card first, against
+    their plain versions on the CPU and, for K3, the golden model."""
+    n_cards = torch.cuda.device_count()
+    require(n_cards > 1, "--cross-card needs more than one card")
+    rng = np.random.default_rng(SEED + 2)
+    seeds = [rng.bytes(32) for _ in range(4)]
+    pubs = [host_ed.public_key_from_seed(s) for s in seeds]
+    epoch = ed25519_batch.EpochTables(pubs)
+    n = 32
+    msgs = [rng.bytes(48) for _ in range(n)]
+    vix = rng.integers(0, 4, n)
+    sigs = host_ed.sign_batch([(seeds[v], m) for v, m in zip(vix, msgs)])
+    for j in range(0, n, 3):  # a third of the signatures corrupted
+        sigs[j] = sigs[j][:9] + bytes([sigs[j][9] ^ 0x04]) + sigs[j][10:]
+    want = np.array([host_ed.verify_pure(pubs[v], m, g) for v, m, g in zip(vix, msgs, sigs)])
+    batch = ed25519_batch.prepare_compact(msgs, sigs, vix, epoch)
+    cpu = torch.device("cpu")
+    k3_args = [torch.from_numpy(np.ascontiguousarray(x)) for x in (
+        batch.s_nibbles, batch.h_nibbles, batch.val_idx)] + [epoch.device_tables(cpu)] + [
+        torch.from_numpy(np.ascontiguousarray(x)) for x in (batch.r_y, batch.r_sign, batch.pre_ok)]
+    k2_args = k3_args[:4]
+    fe_a = torch.from_numpy(fe.bytes_to_limbs_np(
+        np.frombuffer(rng.bytes(32 * 256), np.uint8).reshape(256, 32) & 0x7F))
+    fe_b = fe_a.roll(1, 0)
+    p1 = fe.fe_ops_plain(fe_a, fe_b)
+    p2 = curve.dsm_encode_plain(*k2_args)
+    require(bool((ed25519_batch.verify_kernel_gather_plain(*k3_args).numpy() == want).all()),
+            "plain verify != verify_pure")
+    _lib.reset_launches()
+    for card in reversed(range(n_cards)):
+        dev = torch.device("cuda", card)
+        k1 = fe.fe_ops(fe_a.to(dev), fe_b.to(dev)).cpu()
+        k2 = [t.cpu() for t in curve.dsm_encode(*[t.to(dev) for t in k2_args])]
+        k3 = ed25519_batch.verify_kernel_gather(*[t.to(dev) for t in k3_args]).cpu()
+        require(bool((k1 == p1).all()), f"K1 on cuda:{card} != plain")
+        require(bool((k2[0] == p2[0]).all() and (k2[1] == p2[1]).all()), f"K2 on cuda:{card} != plain")
+        require(bool((k3.numpy() == want).all()), f"K3 on cuda:{card} != verify_pure")
+        log(f"cross-card: cuda:{card} ({torch.cuda.get_device_name(card)}): K1, K2, K3 "
+            f"bit-exact ({int(want.sum())}/{n} signatures valid)")
+    require(all(_lib.launches[k] == n_cards for k in ("fe_ops", "dsm_encode", "verify")),
+            f"launches {_lib.launches} for {n_cards} cards")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -556,7 +615,15 @@ def main() -> int:
         f"{card['sms']} SMs, max SM clock {card['max_sm_mhz']:.0f} MHz")
     t0 = time.perf_counter()
     _lib.build_all(force=True)
-    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc -gencode arch=compute_90a,code=sm_90a, in parallel)")
+    card["build_s"] = time.perf_counter() - t0
+    log(f"build: {card['build_s']:.1f} s (nvcc -gencode arch=compute_90a,code=sm_90a, in parallel)")
+    if sys.argv[1:] == ["--cross-card"]:
+        cross_card_phase()
+        log(json.dumps({"cards": torch.cuda.device_count()}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
+    require(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     for name in _lib.LIBS:
         txt = (_lib.BUILD / f"lib{name}.build.txt").read_text()
         log("\n".join(f"  {name}: {ln.strip()}" for ln in txt.splitlines() if "Used" in ln))

@@ -6,14 +6,20 @@ first use (all sources at once, one ``nvcc`` process each, in parallel)
 and loaded with ctypes. Nothing here runs at import: the CPU tests import
 every module and never reach a build.
 
-Every launch goes through :func:`launch`, which passes PyTorch's current
-stream, raises when the C entry point reports a CUDA error, and adds one
-to ``launches[kernel]`` -- the count that shows a run went through the
+Every launch goes through :func:`launch`, which makes the tensors'
+card the current device, passes PyTorch's current stream there, raises
+when the C entry point reports a CUDA error, and adds one to
+``launches[kernel]`` -- the count that shows a run went through the
 kernel. A failed build or launch raises; there is no fallback.
+
+The verify library keeps the base-point table in ``__constant__`` memory,
+which each card holds separately: :func:`launch` copies it to a card
+before the first launch there.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -58,6 +64,7 @@ KERNELS = {"fe_ops": "verify", "dsm_encode": "verify", "verify": "verify",
 launches = {k: 0 for k in KERNELS}
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_tabled: set[int] = set()  # cards whose __constant__ base table is set
 _mtx = threading.Lock()
 
 
@@ -126,30 +133,50 @@ def library(name: str) -> ctypes.CDLL:
         for fn, argtypes in LIBS[name][1].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        if name == "verify":
-            from .curve import BASE_TABLE
-
-            table = np.ascontiguousarray(BASE_TABLE, dtype=np.int32)
-            rc = lib.txf_set_base_table(table.ctypes.data)
-            if rc != 0:
-                raise RuntimeError(f"txf_set_base_table failed: CUDA error {rc}")
         _loaded[name] = lib
         return lib
 
 
-def launch(kernel: str, fn: str, *args) -> None:
-    """Call one C entry point (it launches on the given stream) and count
-    the launch; raise on the CUDA error it returns."""
-    rc = getattr(library(KERNELS[kernel]), fn)(*args)
+def _set_base_table(lib: ctypes.CDLL, index: int) -> None:
+    """Copy the base-point table into the current card's ``__constant__``
+    memory, once per card."""
+    if index in _tabled:
+        return
+    with _mtx:
+        if index in _tabled:
+            return
+        from .curve import BASE_TABLE
+
+        table = np.ascontiguousarray(BASE_TABLE, dtype=np.int32)
+        rc = lib.txf_set_base_table(table.ctypes.data)
+        if rc != 0:
+            raise RuntimeError(f"txf_set_base_table failed: CUDA error {rc}")
+        _tabled.add(index)
+
+
+def launch(kernel: str, fn: str, t, n: int, *args) -> None:
+    """Call one C entry point with ``args`` and the current stream of
+    ``t``'s card, that card made current; count the launch and raise on
+    the CUDA error it returns. ``n`` is the size the entry point launches
+    over: at 0 it would launch nothing, so it is neither called nor
+    counted."""
+    import torch
+
+    if n <= 0:
+        return
+    name = KERNELS[kernel]
+    lib = library(name)
+    index = t.device.index
+    # switching cards costs host time on every launch: only when needed
+    with (contextlib.nullcontext() if index == torch.cuda.current_device()
+          else torch.cuda.device(index)):
+        if name == "verify":
+            _set_base_table(lib, index)
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn} failed: CUDA error {rc}")
     launches[kernel] += 1
-
-
-def stream_of(t) -> int:
-    import torch
-
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def check(t, dtype, shape, name: str) -> None:

@@ -130,9 +130,9 @@ def dsm_encode(s_nibbles, h_nibbles, val_idx, tables):
     y = torch.empty((n, fe.NLIMB), dtype=torch.int32, device=s_nibbles.device)
     parity = torch.empty((n,), dtype=torch.int32, device=s_nibbles.device)
     _lib.launch(
-        "dsm_encode", "txf_dsm_encode", s_nibbles.data_ptr(), h_nibbles.data_ptr(),
-        val_idx.data_ptr(), tables.data_ptr(), tables.shape[0], y.data_ptr(),
-        parity.data_ptr(), n, _lib.stream_of(s_nibbles),
+        "dsm_encode", "txf_dsm_encode", y, n, s_nibbles.data_ptr(),
+        h_nibbles.data_ptr(), val_idx.data_ptr(), tables.data_ptr(),
+        tables.shape[0], y.data_ptr(), parity.data_ptr(), n,
     )
     return y, parity
 

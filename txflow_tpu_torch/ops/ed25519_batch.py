@@ -138,11 +138,11 @@ def verify_into(out, s_nibbles, h_nibbles, val_idx, tables, r_y, r_sign, pre_ok)
     readback)."""
     _check_batch(s_nibbles, h_nibbles, val_idx, tables, r_y, r_sign, pre_ok)
     _lib.check(out, torch.int32, (s_nibbles.shape[0],), "out")
+    n = s_nibbles.shape[0]
     _lib.launch(
-        "verify", "txf_verify", s_nibbles.data_ptr(), h_nibbles.data_ptr(),
+        "verify", "txf_verify", out, n, s_nibbles.data_ptr(), h_nibbles.data_ptr(),
         val_idx.data_ptr(), tables.data_ptr(), tables.shape[0], r_y.data_ptr(),
-        r_sign.data_ptr(), pre_ok.data_ptr(), out.data_ptr(),
-        s_nibbles.shape[0], _lib.stream_of(out),
+        r_sign.data_ptr(), pre_ok.data_ptr(), out.data_ptr(), n,
     )
 
 

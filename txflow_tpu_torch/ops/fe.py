@@ -222,7 +222,7 @@ def fe_ops(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _lib.check(b, torch.int32, (a.shape[0], NLIMB), "b")
     out = torch.empty((a.shape[0], 5, NLIMB), dtype=torch.int32, device=a.device)
     _lib.launch(
-        "fe_ops", "txf_fe_ops", a.data_ptr(), b.data_ptr(), out.data_ptr(),
-        a.shape[0], _lib.stream_of(a),
+        "fe_ops", "txf_fe_ops", out, a.shape[0], a.data_ptr(), b.data_ptr(),
+        out.data_ptr(), a.shape[0],
     )
     return out

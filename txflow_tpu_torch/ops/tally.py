@@ -52,11 +52,11 @@ def tally_into(stake, maj, valid, tx_slot, val_idx, powers, prior, quorum: int):
     _lib.check(maj, torch.int32, (s,), "maj")
     if powers.shape[0] == 0:
         raise ValueError("powers: empty validator set")
+    # the kernel runs over the slots (it writes maj23 even with no votes)
     _lib.launch(
-        "tally", "txf_tally", valid.data_ptr(), tx_slot.data_ptr(),
+        "tally", "txf_tally", stake, s, valid.data_ptr(), tx_slot.data_ptr(),
         val_idx.data_ptr(), powers.data_ptr(), powers.shape[0], prior.data_ptr(),
         int(quorum), stake.data_ptr(), maj.data_ptr(), b, s,
-        _lib.stream_of(valid),
     )
 
 

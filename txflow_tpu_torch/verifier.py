@@ -32,9 +32,9 @@ from .types.validator import ValidatorSet
 DEFAULT_BUCKETS = (64, 256, 1024, 4096, 16384, 65536)
 
 
-def bucket_size(n: int, buckets=DEFAULT_BUCKETS) -> int:
+def bucket_size(n: int) -> int:
     """Smallest bucket >= n; beyond the largest bucket, n itself."""
-    for b in buckets:
+    for b in DEFAULT_BUCKETS:
         if b >= n:
             return b
     return n
@@ -234,11 +234,10 @@ class DeviceVoteVerifier:
     for a new set with two host->device copies and nothing rebuilt.
     """
 
-    def __init__(self, val_set: ValidatorSet, device=None, buckets=DEFAULT_BUCKETS):
+    def __init__(self, val_set: ValidatorSet, device=None):
         self.device = resolve_device(device)
-        self.buckets = buckets
         # the engine must not drain batches beyond the largest bucket
-        self.max_batch = max(buckets)
+        self.max_batch = max(DEFAULT_BUCKETS)
         self.capacity = _next_pow2(max(val_set.size(), 4))
         self._stage = self._build_stage(val_set)
 
@@ -321,8 +320,8 @@ class DeviceVoteVerifier:
         tx_slot = np.asarray(tx_slot, dtype=np.int32)
         keep = first_occurrence_mask(tx_slot, val_idx)
         st = self._stage
-        b = bucket_size(n, self.buckets)
-        b_slots = bucket_size(n_slots, self.buckets)
+        b = bucket_size(n)
+        b_slots = bucket_size(n_slots)
 
         batch = ed25519_batch.prepare_compact(msgs, sigs, val_idx, st.epoch)
         batch.pre_ok &= keep
