@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py                # one card: build, kernels, slice
+    python3 chip_smoke.py                # one card: build, kernels, slice, committee
     python3 chip_smoke.py --cross-card   # two or more cards: the kernels on each
 
 1. Builds the CUDA sources of txflow_tpu_torch/csrc with nvcc (one process
@@ -12,8 +12,9 @@
    verify and K4 tally on one 16384-vote batch holding corrupted R and S,
    S >= L, wrong-chain signatures, an off-curve key, a non-canonical R,
    duplicates, padding rows and nonzero prior stake; K3 also against the
-   golden model on a sample. Times each (median of CUDA-event timings
-   after warmup) beside its plain version and its bound.
+   golden model on a sample. Times each (many launches between one pair
+   of CUDA events, over their number, after warmup) beside its plain
+   version (median of CUDA-event windows) and its bound.
 3. Slice: one node's fast path -- a 16-validator set with unequal stake,
    4096 txs in the mempool, 65,536 signed TxVotes (about 1/8 byzantine)
    through TxVotePool -> TxFlow.step() (max_batch 16384) -> TxStore + the
@@ -21,6 +22,23 @@
    the txs whose honest stake reaches quorum commit, every certificate
    holds only valid votes worth at least quorum, the app holds exactly
    those keys, the verify and tally kernels ran, and no host verify ran.
+4. Committee certificates (K6, the verify kernel launched alone over one
+   committee's unpadded tables): the README's committee configuration --
+   256 validators at power 10, EpochConfig(length=1, committee_size=32),
+   chain txflow-bench -- with 131,072 votes of the two committees of vote
+   heights 0 and 1 over 4096 txs (about 1/8 byzantine). K6 is held
+   against its plain version at rungs 8, 64, 1024 and 8192 and timed over
+   many launches. Then a serving TxFlow mounting BatchCertVerifier drains
+   the height-0 votes (one K6 launch a step), rotates to the epoch-1
+   committee (update_state restages the tables on the card) and drains the
+   height-1 votes; a follower with its own stores walks the server's
+   commit log through serve_range -> the sync wire format ->
+   SyncManager, refuses three tampered responses as byzantine with nothing
+   applied, and re-verifies (one K6 launch per epoch group) and applies
+   the rest. Checks: the committed set known by construction, the
+   rotation, the follower's certificate rows, order and app state equal
+   to the server's, and every certificate batch through K6 (no host
+   verify). Prints the phase's JSON line before the kernels' line.
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0), and
@@ -47,11 +65,17 @@ import numpy as np
 import torch
 
 from txflow_tpu_torch.abci import AppConns, KVStoreApplication
+from txflow_tpu_torch.committee import BatchCertVerifier, CommitteeSchedule
+from txflow_tpu_torch.committee.certverify import _rung
 from txflow_tpu_torch.crypto import ed25519 as host_ed
 from txflow_tpu_torch.engine import TxExecutor, TxFlow
+from txflow_tpu_torch.epoch import EpochConfig
 from txflow_tpu_torch.ops import _lib, curve, ed25519_batch, fe, tally
 from txflow_tpu_torch.pool import Mempool, TxVotePool
+from txflow_tpu_torch.state import StateStore
 from txflow_tpu_torch.store import MemDB, TxStore
+from txflow_tpu_torch.store.tx_store import _decode_votes, _encode_votes
+from txflow_tpu_torch.sync import SyncConfig, SyncError, SyncManager, serve_range, wire
 from txflow_tpu_torch.types import MockPV, TxVote, Validator, ValidatorSet
 from txflow_tpu_torch.types.tx_vote import canonical_sign_bytes
 from txflow_tpu_torch.utils.config import EngineConfig, MempoolConfig
@@ -66,6 +90,13 @@ MAX_BATCH = 16384
 N_FE = 4096  # K1 elements
 N_DSM = 256  # K2 scalar pairs
 BAD_PUB = (2).to_bytes(32, "little")  # y = 2 is off the curve
+# committee phase: the README's committee acceptance configuration
+COM_CHAIN = "txflow-bench"
+COM_VALS = 256  # uniform power 10
+COM_SIZE = 32  # EpochConfig(length=1, committee_size=32): vote height h -> epoch h
+COM_TXS = 2048  # per vote height (0 and 1)
+# K6 timing rows; 16384 is a step's rung, 4096 a sync group's
+K6_RUNGS = (8, 64, 1024, 4096, 8192, 16384)
 # published HBM rates (NVIDIA data sheets); SXM is the default
 HBM_BYTES_PER_S = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
 
@@ -107,6 +138,22 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def cuda_ms_window(fn, launches: int, warmup: int = 2) -> float:
+    """Milliseconds per call of ``fn``: ``launches`` calls between one pair
+    of CUDA events, divided by their number (a window around one launch
+    reads the host's launch path more than the kernel)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(launches):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / launches
 
 
 def bound_ms(card: dict, nbytes: float, mads: float) -> tuple[float, str]:
@@ -236,7 +283,7 @@ def kernel_phase(card: dict, corpus: Corpus, dev) -> list[dict]:
         x, y = vals[i], other[i]
         want = [(x * y) % P, (x * x) % P, (x - y) % P, pow(x, P - 2, P), x % P]
         require([fe.limbs_to_int(r) for r in k1h[i]] == want, f"K1 row {i} != ints")
-    ms = cuda_ms(lambda: fe.fe_ops(a, b), 20, warmup=3)
+    ms = cuda_ms_window(lambda: fe.fe_ops(a, b), 50)
     pms = cuda_ms(lambda: fe.fe_ops_plain(a, b), 3)
     bnd, by = bound_ms(card, nbytes(a, b, k1), N_FE * fe.MULS_PER_FE_OPS * fe.MADS_PER_MUL)
     rows.append(dict(name="K1 fe25519 field ops (fe_ops kernel alone; runs inside txf_verify on the main path)",
@@ -261,7 +308,7 @@ def kernel_phase(card: dict, corpus: Corpus, dev) -> list[dict]:
     p2 = curve.dsm_encode_plain(s_nib, h_nib, vidx, tables)
     torch.cuda.synchronize()
     require(bool((k2[0] == p2[0]).all() and (k2[1] == p2[1]).all()), "K2 dsm_encode kernel != plain")
-    ms = cuda_ms(lambda: curve.dsm_encode(s_nib, h_nib, vidx, tables), 10, warmup=2)
+    ms = cuda_ms_window(lambda: curve.dsm_encode(s_nib, h_nib, vidx, tables), 10)
     pms = cuda_ms(lambda: curve.dsm_encode_plain(s_nib, h_nib, vidx, tables), 2)
     bnd, by = bound_ms(card, nbytes(s_nib, h_nib, vidx, tables, *k2),
                        N_DSM * curve.MULS_PER_DSM_ENCODE * fe.MADS_PER_MUL)
@@ -346,7 +393,7 @@ def kernel_phase(card: dict, corpus: Corpus, dev) -> list[dict]:
         idx = [j for j in range(n) if kinds[j] == kind]
         require(len(idx) > 0 and not k3h[idx].any(), f"a {kind} vote verified")
     n_ok = int(ok.sum())
-    ms = cuda_ms(lambda: ed25519_batch.verify_kernel_gather(*args), 10, warmup=2)
+    ms = cuda_ms_window(lambda: ed25519_batch.verify_kernel_gather(*args), 10)
     pms = cuda_ms(lambda: ed25519_batch.verify_kernel_gather_plain(*args), 2)
     bnd, by = bound_ms(card, nbytes(*args[:3], *args[4:]) + nbytes(tables) + B * 4,
                        n_ok * ed25519_batch.MADS_PER_SIGNATURE)
@@ -374,7 +421,8 @@ def kernel_phase(card: dict, corpus: Corpus, dev) -> list[dict]:
     def run_tally():
         tally.tally_into(stake_k, maj_k, valid_i, slot_t, args[2], powers_t, prior_t, quorum)
 
-    ms = cuda_ms(run_tally, 50, warmup=5)
+    ms = cuda_ms_window(run_tally, 500, warmup=5)
+    one_ms = cuda_ms(run_tally, 50, warmup=5)  # a window around each launch, for comparison
     pms = cuda_ms(lambda: tally.tally_plain(k3, slot_t, args[2], powers_t, prior_t, quorum), 20, warmup=2)
     in_range = (slot_t >= 0) & (slot_t < S)
     slot_c = slot_t.long().clamp(0, S - 1)
@@ -385,7 +433,7 @@ def kernel_phase(card: dict, corpus: Corpus, dev) -> list[dict]:
         return prior_t.index_add(0, slot_c, contrib) >= quorum
 
     require(bool((library_tally().int() == maj_p).all()), "index_add tally != plain")
-    lib_ms = cuda_ms(library_tally, 50, warmup=5)
+    lib_ms = cuda_ms_window(library_tally, 500, warmup=5)
     bnd, by = bound_ms(card, nbytes(valid_i, slot_t, args[2], powers_t, prior_t, stake_k, maj_k),
                        B + S)
     rows.append(dict(name="K4 stake tally (txf_tally)", route="cuda",
@@ -394,9 +442,9 @@ def kernel_phase(card: dict, corpus: Corpus, dev) -> list[dict]:
                      max_abs_err=int(max((packed[B : B + S] - stake_p).abs().max(),
                                          (packed[B + S :] - maj_p).abs().max())),
                      ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
-                     shape=f"{B} votes, {S} slots"))
+                     one_launch_window_ms=one_ms, shape=f"{B} votes, {S} slots"))
     log(f"K4 tally: bit-exact ({int(maj_p.sum())} slots at quorum); {ms:.4f} ms "
-        f"(plain {pms:.3f} ms, index_add_ + compare {lib_ms:.4f} ms, bound {bnd:.6f} ms by {by})")
+        f"({one_ms:.4f} ms in a window around one launch; plain {pms:.3f} ms, index_add_ + compare {lib_ms:.4f} ms, bound {bnd:.6f} ms by {by})")
     return rows
 
 
@@ -419,17 +467,7 @@ def slice_phase(corpus: Corpus, dev) -> dict:
     errs = votepool.check_tx_many([corpus.votes[i] for i in corpus.order])
     require(not any(errs), "vote pool rejected a vote")
 
-    # count host verifies during the run: there must be none
-    host_calls = {"n": 0}
-    originals = (host_ed.verify, host_ed.verify_pure)
-
-    def counting(fn):
-        def wrapped(*a, **k):
-            host_calls["n"] += 1
-            return fn(*a, **k)
-        return wrapped
-
-    host_ed.verify, host_ed.verify_pure = counting(originals[0]), counting(originals[1])
+    host_calls, restore_host = _count_host_verifies()
     tally_step = tally.compact_step_packed
     stages, device_ms = _time_stages(flow, dev)
     step_s = []
@@ -444,7 +482,7 @@ def slice_phase(corpus: Corpus, dev) -> dict:
             step_s.append(time.perf_counter() - ts)
         wall = time.perf_counter() - t0
     finally:
-        host_ed.verify, host_ed.verify_pure = originals
+        restore_host()
         tally.compact_step_packed = tally_step
     launches = dict(_lib.launches)
     log(f"slice: {len(step_s)} steps, launches {launches}, host verifies {host_calls['n']}")
@@ -516,6 +554,26 @@ def slice_phase(corpus: Corpus, dev) -> dict:
     return out
 
 
+def _count_host_verifies() -> tuple[dict, object]:
+    """Wrap the host verifiers to count their calls (a run of the device
+    path makes none). Returns (counts, restore)."""
+    calls = {"n": 0}
+    originals = (host_ed.verify, host_ed.verify_pure)
+
+    def counting(fn):
+        def wrapped(*a, **k):
+            calls["n"] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    host_ed.verify, host_ed.verify_pure = counting(originals[0]), counting(originals[1])
+
+    def restore():
+        host_ed.verify, host_ed.verify_pure = originals
+
+    return calls, restore
+
+
 def _time_stages(flow, dev) -> tuple[dict, list]:
     """Wrap the engine's stage methods on this instance to add up host
     seconds per stage (drain + sign bytes; host prep + H2D + launch;
@@ -559,6 +617,386 @@ def _time_stages(flow, dev) -> tuple[dict, list]:
     flow._route_result = timed("route", flow._route_result)
     flow._commit_effects = timed("commit", flow._commit_effects)
     return stages, device_ms
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: committee certificates (K6) -- the committee-mode fast path with
+# an epoch rotation, and a lagging follower's batched certificate re-check
+
+
+class CommitteeCorpus:
+    """COM_VALS validators at power 10; the committees of vote heights 0 and
+    1 (COM_SIZE members each, quorum 214 = 22 votes); COM_TXS txs per
+    height, every committee member voting on each, about 1/8 of the votes
+    byzantine (a flipped R or S byte, or a wrong-chain signature), spread
+    so that some txs stay below quorum; arrival shuffled within a height."""
+
+    def __init__(self, seed: int):
+        rng = np.random.default_rng(seed)
+        seeds = [rng.bytes(32) for _ in range(COM_VALS)]
+        pubs = [host_ed.public_key_from_seed(s) for s in seeds]
+        self.full = ValidatorSet([Validator.from_pub_key(p, 10) for p in pubs])
+        seed_of = {Validator.from_pub_key(p, 1).address: s for p, s in zip(pubs, seeds)}
+        self.cfg = EpochConfig(length=1, committee_size=COM_SIZE)
+        sched = CommitteeSchedule(COM_CHAIN, self.cfg)
+        self.committees = [sched.for_vote_height(h, self.full) for h in (0, 1)]
+        self.txs = [b"ctx%05d=%d" % (i, i) for i in range(2 * COM_TXS)]
+        # byzantine votes per tx (of 32): mean 3.9, and 11 or 12 (below
+        # quorum) on 15% of the txs
+        n_byz = rng.choice(np.array([0, 2, 3, 4, 6, 11, 12]) * COM_SIZE // 32, size=len(self.txs),
+                           p=[0.2, 0.2, 0.2, 0.15, 0.1, 0.1, 0.05])
+        self.votes: list[TxVote] = []
+        self.byzantine: list[bool] = []
+        self.height: list[int] = []
+        items, kinds = [], []
+        for t, tx in enumerate(self.txs):
+            h = t // COM_TXS
+            com = self.committees[h]
+            key = hashlib.sha256(tx).digest()
+            byz = set(rng.choice(COM_SIZE, size=int(n_byz[t]), replace=False).tolist())
+            for m, val in enumerate(com):
+                vote = TxVote(h, key.hex().upper(), key, 1_700_000_000_000_000_000 + t, val.address)
+                kind = ("flip_r", "flip_s", "wrong_chain")[int(rng.integers(3))] if m in byz else "honest"
+                chain = "incorrect-chain-id" if kind == "wrong_chain" else COM_CHAIN
+                items.append((seed_of[val.address], vote.sign_bytes(chain)))
+                kinds.append(kind)
+                self.votes.append(vote)
+                self.byzantine.append(m in byz)
+                self.height.append(h)
+        t0 = time.perf_counter()
+        sigs = _sign_all(items)
+        self.sign_s = time.perf_counter() - t0
+        for vote, sig, kind in zip(self.votes, sigs, kinds):
+            if kind == "flip_r":
+                sig = sig[:7] + bytes([sig[7] ^ 0x10]) + sig[8:]
+            elif kind == "flip_s":
+                sig = sig[:45] + bytes([sig[45] ^ 0x01]) + sig[46:]
+            vote.signature = sig
+        honest = np.zeros(len(self.txs), np.int64)
+        for i, b in enumerate(self.byzantine):
+            if not b:
+                honest[i // COM_SIZE] += 10
+        self.quorum = self.committees[0].quorum_power()
+        self.expect_commit = honest >= self.quorum
+        per_h = COM_TXS * COM_SIZE
+        self.orders = [h * per_h + rng.permutation(per_h) for h in (0, 1)]
+
+
+def _k6_timer(dev):
+    """Wrap ed25519_batch.verify_kernel_gather (BatchCertVerifier calls it
+    through the module) to record each call's rung, a pair of CUDA events
+    around that one launch (so the window holds the launch path too), its
+    inputs and its output, under a label the caller sets. Returns
+    (records, label, restore)."""
+    records: list = []
+    label = {"phase": ""}
+    fn = ed25519_batch.verify_kernel_gather
+
+    def timed(*a, **k):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn(*a, **k)
+        e1.record()
+        records.append((label["phase"], a[0].shape[0], e0, e1, a, out))
+        return out
+
+    ed25519_batch.verify_kernel_gather = timed
+
+    def restore():
+        ed25519_batch.verify_kernel_gather = fn
+
+    return records, label, restore
+
+
+def k6_rows(card: dict, com: "CommitteeCorpus", dev) -> list[dict]:
+    """K6 (txf_verify launched alone over one committee's unpadded tables,
+    V = COM_SIZE) at each rung of K6_RUNGS, on height-1 votes of the corpus
+    (their byzantine share included): bit-exact against the plain version,
+    against the golden model on a sample, and timed over many launches."""
+    c1 = com.committees[1]
+    epoch = ed25519_batch.EpochTables([v.pub_key for v in c1])
+    tables = epoch.device_tables(dev)
+    require(tables.shape[0] == COM_SIZE, "K6 tables are padded")
+    idx = {v.address: i for i, v in enumerate(c1)}
+    pubs = [v.pub_key for v in c1]
+    rows = []
+    for rung in K6_RUNGS:
+        pick = com.orders[1][:rung]
+        votes = [com.votes[i] for i in pick]
+        msgs = [canonical_sign_bytes(COM_CHAIN, v.height, v.tx_hash, v.timestamp_ns) for v in votes]
+        sigs = [v.signature for v in votes]
+        vix = np.array([idx[v.validator_address] for v in votes])
+        batch = ed25519_batch.prepare_compact(msgs, sigs, vix, epoch)
+        require(_rung(len(votes)) == rung, "rung")
+
+        def T(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+        args = (T(batch.s_nibbles), T(batch.h_nibbles), T(batch.val_idx), tables,
+                T(batch.r_y), T(batch.r_sign), T(batch.pre_ok))
+        k6 = ed25519_batch.verify_kernel_gather(*args)
+        p6 = ed25519_batch.verify_kernel_gather_plain(*args)
+        torch.cuda.synchronize()
+        require(bool((k6 == p6).all()), f"K6 kernel != plain at rung {rung}")
+        k6h = k6.cpu().numpy()
+        want_byz = np.array([com.byzantine[i] for i in pick])
+        require(bool((k6h == ~want_byz).all()), f"K6 at rung {rung} != the corpus' honesty")
+        for j in range(0, rung, max(1, rung // 16)):
+            require(bool(k6h[j]) == host_ed.verify_pure(pubs[vix[j]], msgs[j], sigs[j]),
+                    f"K6 row {j} at rung {rung} != verify_pure")
+        n_ok = int(batch.pre_ok.sum())
+        ms = cuda_ms_window(lambda: ed25519_batch.verify_kernel_gather(*args),
+                            max(10, min(200, 65536 // rung)))
+        pms = cuda_ms(lambda: ed25519_batch.verify_kernel_gather_plain(*args), 2)
+        bnd, by = bound_ms(card, nbytes(*args) + rung * 4, n_ok * ed25519_batch.MADS_PER_SIGNATURE)
+        rows.append(dict(name=f"K6 certificate verify (txf_verify alone), rung {rung}", route="cuda",
+                         source="txflow_tpu_torch/csrc/verify.cu",
+                         replaces="txflow_tpu/committee/certverify.py:43",
+                         max_abs_err=int((k6.int() - p6.int()).abs().max()), ms=ms, plain_ms=pms,
+                         bound_ms=bnd, bound_by=by, library_ms=None, rung=rung,
+                         shape=f"{rung} rows, {n_ok} past the host pre-checks, V={COM_SIZE}"))
+        log(f"K6 rung {rung}: bit-exact ({int(k6h.sum())} valid of {rung}); {ms:.4f} ms "
+            f"(plain {pms:.1f} ms, bound {bnd:.5f} ms by {by})")
+    return rows
+
+
+def committee_phase(com: "CommitteeCorpus", dev) -> dict:
+    """The committee-mode fast path on the card: a serving TxFlow mounting
+    BatchCertVerifier drains the height-0 votes, rotates to the epoch-1
+    committee (update_state) and drains the height-1 votes; then a follower
+    with its own stores walks the server's commit log through the sync wire
+    format, refusing three tampered responses and applying the rest after a
+    K6 re-check of every certificate."""
+    c0, c1 = com.committees
+    full = com.full
+    require(c0.size() == c1.size() == COM_SIZE and c0.hash() != c1.hash(), "committees")
+    need = -(-c0.quorum_power() // 10)  # votes a certificate holds: 22 of 32 (214 of 320)
+    n_votes = len(com.votes)
+
+    def node(vals, height):
+        conns = AppConns(KVStoreApplication())
+        mempool = Mempool(MempoolConfig(size=4 * COM_TXS, cache_size=8 * COM_TXS), conns.mempool)
+        commitpool = Mempool(MempoolConfig(size=4 * COM_TXS, cache_size=8 * COM_TXS))
+        votepool = TxVotePool(MempoolConfig(size=2 * n_votes, cache_size=2 * n_votes))
+        store = TxStore(MemDB())
+        verifier = BatchCertVerifier(vals, device=dev)
+        flow = TxFlow(COM_CHAIN, height, vals, votepool, mempool, commitpool,
+                      TxExecutor(conns.consensus, mempool), store,
+                      config=EngineConfig(max_batch=MAX_BATCH, device=str(dev)), verifier=verifier)
+        state = StateStore(MemDB())
+        for h in (0, 1):  # the full set on record, as the block history holds it
+            state.save_validators(h, full)
+        return flow, mempool, votepool, store, state, conns.app
+
+    flow, mempool, votepool, store, s_state, app = node(c0, 0)
+    require(not any(mempool.check_tx_many(com.txs)), "mempool rejected a tx")
+    require(not any(votepool.check_tx_many([com.votes[i] for i in com.orders[0]])),
+            "vote pool rejected a vote")
+    f_flow, _fm, _fv, f_store, f_state, f_app = node(c1, 1)
+    mgr = SyncManager(COM_CHAIN, f_store, f_flow, state_store=f_state,
+                      config=SyncConfig(max_range=256, max_resp_bytes=512 * 1024),
+                      committee=CommitteeSchedule(COM_CHAIN, com.cfg), device=dev)
+
+    records, label, restore = _k6_timer(dev)
+    restage_s = [0.0]
+    restage = flow.verifier.restage
+
+    def timed_restage(vals):  # the table build + upload part of the rotation
+        t = time.perf_counter()
+        try:
+            return restage(vals)
+        finally:
+            restage_s[0] += time.perf_counter() - t
+
+    flow.verifier.restage = timed_restage
+    tally_step = tally.compact_step_packed
+    stages, _ = _time_stages(flow, dev)  # host seconds by engine stage
+    step_s: list[float] = []
+    host_calls, restore_host = _count_host_verifies()
+    _lib.reset_launches()
+    try:
+        # the serving engine: height 0, rotation, height 1
+        label["phase"] = "step"
+        wall = 0.0
+        for h in (0, 1):
+            if h == 1:
+                t0 = time.perf_counter()
+                flow.update_state(1, c1)
+                rot_s = time.perf_counter() - t0
+                require(not any(votepool.check_tx_many([com.votes[i] for i in com.orders[1]])),
+                        "vote pool rejected a vote")
+            t0 = time.perf_counter()
+            while True:
+                ts = time.perf_counter()
+                if not flow.step():
+                    break
+                step_s.append(time.perf_counter() - ts)
+            wall += time.perf_counter() - t0
+        rotation = dict(flow.last_rotation)
+        # the follower: three tampered copies of the first response, then
+        # the honest walk over the server's log
+        label["phase"] = "tampered"
+        cfg = mgr.config
+        advert, entries, snaps = serve_range(store, cfg, 0, cfg.max_range, s_state.load_validators)
+        tampered = {}
+        for case, want in (("flipped signature byte", "invalid signature"),
+                           ("duplicated vote", "invalid signature"),
+                           (f"certificate cut to {need - 1} votes", "below 2/3+ stake")):
+            bad = list(entries)
+            tx_hash, cert, tx = bad[5]
+            votes = _decode_votes(cert)
+            if case.startswith("flipped"):
+                sig = votes[3].signature
+                votes[3].signature = sig[:9] + bytes([sig[9] ^ 0x04]) + sig[10:]
+            elif case.startswith("duplicated"):
+                votes.append(votes[0])
+            else:
+                votes = votes[: need - 1]
+            bad[5] = (tx_hash, _encode_votes(votes), tx)
+            frame = wire.encode_range_resp(0, 0, advert, bad, snaps)
+            try:
+                mgr.apply_range_resp("server", frame)
+                raise AssertionError(f"tampered response ({case}) was applied")
+            except SyncError as e:
+                require(e.byzantine and want in str(e), f"{case}: {e!r}")
+                tampered[case] = str(e)
+            require(f_store.seq_count() == 0, f"{case}: something was applied")
+        label["phase"] = "sync"
+        apply_s = [0.0]
+        apply_fn = f_flow.apply_synced_commit
+
+        def timed_apply(*a, **k):
+            t = time.perf_counter()
+            try:
+                return apply_fn(*a, **k)
+            finally:
+                apply_s[0] += time.perf_counter() - t
+
+        f_flow.apply_synced_commit = timed_apply
+        responses, n_entries, heights_per_resp = 0, 0, []
+        t0 = time.perf_counter()
+        start = 0
+        while start < store.seq_count():
+            body = serve_range(store, cfg, start, cfg.max_range, s_state.load_validators)
+            frame = wire.encode_range_resp(responses, start, *body)
+            got, served, applied = mgr.apply_range_resp("server", frame)
+            require(got == start and served == applied > 0, "a response applied short")
+            heights_per_resp.append(sorted(body[2]))
+            responses += 1
+            n_entries += served
+            start += served
+        sync_s = time.perf_counter() - t0
+    finally:
+        restore_host()
+        tally.compact_step_packed = tally_step
+        restore()
+    launches = dict(_lib.launches)
+    torch.cuda.synchronize()
+    by_phase: dict[str, list] = {"step": [], "tampered": [], "sync": []}
+    rungs: dict[str, dict] = {"step": {}, "tampered": {}, "sync": {}}
+    for ph, rung, e0, e1, _a, _o in records:
+        by_phase[ph].append(e0.elapsed_time(e1))
+        rungs[ph][rung] = rungs[ph].get(rung, 0) + 1
+    # K6 against its plain version on the main path's own launches: the
+    # first launch of every (phase, rung, staged tables) -- the steps'
+    # rung 16384 over each committee's V = 32 tables, the sync groups'
+    # rungs -- rerun through the plain version on the recorded inputs
+    checked, seen = [], set()
+    for ph, rung, _e0, _e1, args, out in records:
+        key = (ph, rung, args[3].data_ptr())
+        if key in seen:
+            continue
+        seen.add(key)
+        plain = ed25519_batch.verify_kernel_gather_plain(*args)
+        require(bool((out == plain).all()), f"K6 != plain on the {ph} launch at rung {rung}")
+        checked.append({"phase": ph, "rung": rung, "V": args[3].shape[0],
+                        "valid": int(out.sum()), "max_abs_err": int((out.int() - plain.int()).abs().max())})
+    require({(c["phase"], c["rung"]) for c in checked}
+            == {(ph, r) for ph in rungs for r in rungs[ph]}, "a main-path K6 shape went unchecked")
+    log(f"committee: K6 bit-exact with its plain version on {len(checked)} main-path launches "
+        f"(each phase, rung and committee's tables): {checked}")
+    f_verifiers = list(mgr._verifiers.values()) + [f_flow.verifier]
+    batch_calls = flow.verifier.batch_calls + sum(v.batch_calls for v in f_verifiers)
+    scalar_calls = flow.verifier.scalar_calls + sum(v.scalar_calls for v in f_verifiers)
+    log(f"committee: {len(step_s)} steps, {responses} responses, launches {launches}, "
+        f"K6 calls by phase and rung {rungs}, host verifies {host_calls['n']}")
+    require(launches["verify"] == batch_calls == len(records) > 0, "K6 launches != batch calls")
+    require(launches["tally"] == launches["fe_ops"] == launches["dsm_encode"] == 0, "other kernels ran")
+    require(scalar_calls == 0 and host_calls["n"] == 0, "a host (scalar) verify ran")
+    require(len(by_phase["step"]) == len(step_s), "one K6 launch per step")
+
+    # the rotation
+    require(rotation["restaged"] is True and rotation["commits_on_rotation"] == 0, f"{rotation}")
+    c1_addrs = {v.address for v in c1}
+    dropped = sum(1 for i in range(COM_TXS * COM_SIZE)
+                  if not com.expect_commit[i // COM_SIZE] and not com.byzantine[i]
+                  and com.votes[i].validator_address not in c1_addrs)
+    require(rotation["votes_dropped"] == dropped, f"votes_dropped {rotation['votes_dropped']} != {dropped}")
+    require(flow.verifier.val_set.hash() == c1.hash(), "verifier not restaged")
+
+    # the server's outcome, known by construction
+    hashes = [hashlib.sha256(tx).hexdigest().upper() for tx in com.txs]
+    committed = np.array([flow.is_tx_committed(h) for h in hashes])
+    require(bool((committed == com.expect_commit).all()),
+            f"committed {int(committed.sum())} txs, expected {int(com.expect_commit.sum())}")
+    require(0 < committed.sum() < len(com.txs), "the byzantine spread left no tx below quorum")
+    byz = {(v.tx_hash, v.validator_address): b for v, b in zip(com.votes, com.byzantine)}
+    committed_votes = 0
+    for t, h in enumerate(hashes):
+        if not committed[t]:
+            continue
+        cert = flow.load_commit(h)
+        ch = t // COM_TXS
+        require(all(cs.height == ch for cs in cert.commits), "certificate mixes heights")
+        require(all(com.committees[ch].has_address(cs.validator_address) for cs in cert.commits),
+                "certificate vote from outside its epoch's committee")
+        require(not any(byz[(h, cs.validator_address)] for cs in cert.commits),
+                "a byzantine vote in a certificate")
+        require(len(cert.commits) == need, f"certificate of {len(cert.commits)} votes")
+        committed_votes += len(cert.commits)
+    want_keys = {tx.split(b"=")[0] for tx, c in zip(com.txs, committed) if c}
+    require(set(app.state) == want_keys and app.tx_count == len(want_keys), "server app state")
+
+    # the follower equals the server
+    order = store.committed_hashes_in_order()
+    require(f_store.committed_hashes_in_order() == order, "follower commit order != server's")
+    require(all(f_store.load_cert_row(h) == store.load_cert_row(h) for h in order),
+            "a follower certificate row differs from the server's")
+    require(f_app.state == app.state and f_app.digest == app.digest, "follower app state != server's")
+    require(n_entries == len(order), "entries served != commits")
+
+    p50 = statistics.median(step_s)
+    sync_verify_ms = sum(by_phase["sync"])
+    stage_ms = {k: v * 1e3 for k, v in stages.items()}
+    stage_ms["route"] -= stage_ms["commit"]  # commits run inside routing
+    out = {"validators": COM_VALS, "committee_size": COM_SIZE, "quorum": c0.quorum_power(),
+           "votes": n_votes, "txs": len(com.txs), "steps": len(step_s), "step_s": step_s,
+           "p50_step_ms": p50 * 1e3, "wall_s": wall,
+           "k6_one_launch_window_ms_per_step": by_phase["step"],
+           "committed_txs": int(committed.sum()), "committed_votes": committed_votes,
+           "committed_votes_per_s": committed_votes / wall, "votes_per_s": n_votes / wall,
+           "stage_ms_total": stage_ms,
+           "rotation": rotation, "rotation_s": rot_s, "rotation_restage_s": restage_s[0],
+           "responses": responses, "entries": n_entries, "groups": len(by_phase["sync"]),
+           "vote_heights_per_response": heights_per_resp,
+           "k6_launches": launches["verify"], "k6_calls_by_phase_and_rung": rungs,
+           "k6_main_path_checked": checked,
+           "tampered": tampered, "sync_s": sync_s,
+           "sync_k6_one_launch_window_ms_total": sync_verify_ms,
+           "k6_one_launch_window_ms_per_group": by_phase["sync"], "sync_apply_s": apply_s[0],
+           "sync_host_verify_s": sync_s - apply_s[0] - sync_verify_ms / 1e3,
+           "host_verifies": host_calls["n"], "sign_s": com.sign_s}
+    log(f"committee: {out['committed_txs']}/{len(com.txs)} txs committed as constructed, "
+        f"{committed_votes} certificate votes; {out['committed_votes_per_s']:.0f} committed votes/s, "
+        f"p50 step {out['p50_step_ms']:.1f} ms over {len(step_s)} steps; K6 one-launch window per step "
+        + ", ".join(f"{d:.2f}" for d in by_phase["step"])
+        + f" ms; rotation in {rot_s * 1e3:.1f} ms ({restage_s[0] * 1e3:.1f} ms restaging): {rotation}")
+    log("committee: server time by stage over the run (ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in stage_ms.items()))
+    log(f"committee: follower applied {n_entries} certificates from {responses} responses "
+        f"({len(by_phase['sync'])} K6 launches) in {sync_s:.2f} s: K6 one-launch windows {sync_verify_ms:.1f} ms, "
+        f"apply {apply_s[0]:.2f} s; tampered responses refused: {tampered}")
+    return out
 
 
 def cross_card_phase() -> None:
@@ -638,9 +1076,31 @@ def main() -> int:
     by_name = {"K1": "verify", "K2": "verify", "K3": "verify", "K4": "tally"}
     for r in rows:
         r["launches"] = sl["launches"][by_name[r["name"][:2]]]
+    t0 = time.perf_counter()
+    com = CommitteeCorpus(SEED + 3)
+    log(f"committee corpus: {len(com.votes)} votes signed in {com.sign_s:.1f} s "
+        f"({time.perf_counter() - t0:.1f} s with setup); {sum(com.byzantine)} byzantine; "
+        f"{int(com.expect_commit.sum())}/{len(com.txs)} txs reach the committee quorum on honest stake")
+    k6 = k6_rows(card, com, dev)
+    cm = committee_phase(com, dev)
+    for r in k6:
+        r["launches"] = cm["k6_launches"]  # K6 launches of the committee path, all rungs
+    # the device's busy share of the committee steps: each step's K6 launch
+    # at its kernel-row time (many launches in one window), over step time
+    row_ms = {r["rung"]: r["ms"] for r in k6}
+    step_rungs = cm["k6_calls_by_phase_and_rung"]["step"]
+    cm["k6_busy_share_from_rows"] = (
+        sum(row_ms[g] * n for g, n in step_rungs.items()) / (sum(cm["step_s"]) * 1e3)
+        if all(g in row_ms for g in step_rungs) else None)
+    log(f"committee: K6 busy share of the step time (kernel-row ms x launches) "
+        f"{cm['k6_busy_share_from_rows']}")
+    rows += k6
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernels": rows, "slice": sl}, f, indent=1)
+        json.dump({"card": card, "kernels": rows, "slice": sl, "committee": cm}, f, indent=1)
+    log(json.dumps({"committee": {k: v for k, v in cm.items() if k not in (
+        "step_s", "vote_heights_per_response", "k6_one_launch_window_ms_per_group",
+        "k6_main_path_checked")}}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -18,6 +18,12 @@ a time, verifying each ed25519 signature on the host under a mutex
    from the pool -> push the tx into the commitpool (the sequence of
    txflow/service.go:216-232).
 
+At a block boundary ``update_state`` moves the engine to a new height and,
+on a rotated set (a new epoch's committee), restages the verifier's tables
+and re-evaluates every in-flight vote set; ``apply_synced_commit`` is the
+seam through which the catch-up client (``sync/``) applies a fetched,
+re-verified certificate.
+
 Divergences from the reference (defects fixed, as in the JAX package):
 committed TxVoteSets are dropped from the in-flight map and late votes for
 a committed tx are discarded; votes that can never be added (invalid
@@ -27,6 +33,7 @@ pool instead of lingering.
 
 from __future__ import annotations
 
+import hashlib
 import threading
 
 import numpy as np
@@ -112,6 +119,7 @@ class TxFlow:
         # tx_key), as in the JAX package
         self._unapplied: dict[str, bytes] = {}
         self.app_hash = b""
+        self.last_rotation: dict | None = None
 
     # ---- batched aggregation step ----
 
@@ -341,6 +349,95 @@ class TxFlow:
                 pass  # commitpool dup (e.g. replays) is harmless
         if purge_batch is not None:
             purge_batch.extend(quorum_votes)
+
+    # ---- catch-up sync commit seam ----
+
+    def apply_synced_commit(
+        self, vs: TxVoteSet, votes: list[TxVote], tx: bytes
+    ) -> bool:
+        """Commit a certificate fetched and already verified by the
+        catch-up client (sync/manager.py), through the live commit seam:
+        the committed mark is pushed under _mtx as for a fast-path
+        decision, so a racing local quorum never double-applies; the
+        TxStore save assigns the next local seq, so the commit-order log
+        extends in the server's order; store, then apply.
+
+        The caller must have verified the certificate and that sha256(tx)
+        is the certified hash: the sign bytes zero TxKey, so a vote's own
+        tx_key field is never trusted here. Returns False when the tx is
+        already committed locally."""
+        tx_key = hashlib.sha256(tx).digest()
+        tx_hash = tx_key.hex().upper()
+        with self._mtx:
+            if _hash_key(tx_hash) in self._committed or self.tx_store.has_tx(tx_hash):
+                return False
+            live = self.vote_sets.pop(tx_hash, None)
+            self._committed.push(_hash_key(tx_hash))
+        if live is not None:
+            # a below-quorum local aggregation was racing the sync apply:
+            # release its pool votes
+            self.tx_vote_pool.update(self.height, live.votes_snapshot())
+        self.tx_store.save_tx(vs, votes=votes, tx=tx)
+        app_hash, _ = self.tx_executor.apply_tx(self.height, tx, tx_hash, tx_key=tx_key)
+        self.app_hash = app_hash
+        try:
+            self.commitpool.check_tx(tx, key=tx_key)
+        except Exception:
+            pass  # commitpool dup (e.g. replays) is harmless
+        return True
+
+    # ---- block boundary: epoch rotation ----
+
+    def update_state(self, height: int, val_set: ValidatorSet) -> None:
+        """New height, possibly with a rotated validator set (or a new
+        epoch's committee). All under _mtx, so no step sees a half-rotated
+        engine:
+
+        1. the verifier restages in place (new tables on the card, same
+           shapes); a device verifier past its capacity is rebuilt on the
+           same device instead. A set whose total
+           power reaches 2^30 raises from the device verifier, as at
+           construction: the port has no host fallback for it.
+        2. every in-flight TxVoteSet is re-evaluated against the new set
+           (TxVoteSet.revalidate): votes of removed validators dropped,
+           sums re-weighted, latched certificates untouched, and a set
+           that now clears the quorum commits at once.
+        3. the address->index map swaps with the verifier.
+        """
+        with self._mtx:
+            # content, not identity: an unchanged set is not restaged
+            if val_set is self.val_set or val_set.hash() == self.val_set.hash():
+                self.height = height
+                return
+            base = self.verifier
+            restaged = base.restage(val_set)
+            # only a device verifier past its capacity declines; its
+            # successor is built before any engine state swaps (the height
+            # included), so a failure leaves the old epoch's height, map,
+            # set and verifier together
+            verifier = base if restaged else DeviceVoteVerifier(val_set, device=base.device)
+            self.height = height
+            self.val_set = val_set
+            self._addr_to_idx = {v.address: i for i, v in enumerate(val_set)}
+            self.verifier = verifier
+            dropped = 0
+            newly_quorate = []
+            for vs in list(self.vote_sets.values()):
+                d, quorate = vs.revalidate(val_set)
+                dropped += d
+                if quorate:
+                    newly_quorate.append(vs)
+            for vs in newly_quorate:
+                # a shrinking total power can push a pending tx over 2/3
+                # with no new vote: commit it now, on the inline path
+                self._commit_tx(vs)
+            self.last_rotation = {
+                "height": height,
+                "restaged": restaged,
+                "votes_dropped": dropped,
+                "commits_on_rotation": len(newly_quorate),
+                "val_set_hash": val_set.hash().hex(),
+            }
 
     # ---- queries ----
 

@@ -168,3 +168,28 @@ class TxStore:
         for _, v in self.db.iterate(b"S:", b"S;"):
             out.append(v.decode())
         return out
+
+    # -- catch-up sync reads (sync/reactor.py serves from these) --
+
+    def seq_count(self) -> int:
+        """Number of fast-path commits in the order log: the node's
+        advertised sync height."""
+        with self._mtx:
+            return self._seq
+
+    def committed_range(self, start: int, count: int) -> list[tuple[int, str]]:
+        """(seq, tx_hash) pairs of the commit-order log with seq in
+        [start, start+count); missing seqs are absent."""
+        if count <= 0 or start < 0:
+            return []
+        lo = b"S:%016d" % start
+        hi = b"S:%016d" % (start + count)
+        return [(int(k[2:]), v.decode()) for k, v in self.db.iterate(lo, hi)]
+
+    def load_cert_row(self, tx_hash: str) -> bytes | None:
+        """The raw H: certificate row, byte-identical to what this node
+        committed (sync serves it verbatim)."""
+        return self.db.get(_tx_key(tx_hash))
+
+    def load_tx_bytes(self, tx_hash: str) -> bytes | None:
+        return self.db.get(b"T:" + tx_hash.encode())

@@ -21,13 +21,18 @@ class Validator:
     address: bytes
     pub_key: bytes  # ed25519, 32 bytes
     voting_power: int
+    # carried through the state-store JSON codec (sync snapshots); the
+    # port elects no proposers, so it stays as it was decoded
+    proposer_priority: int = 0
 
     @classmethod
     def from_pub_key(cls, pub_key: bytes, voting_power: int) -> "Validator":
         return cls(address_hash(pub_key), pub_key, voting_power)
 
     def copy(self) -> "Validator":
-        return Validator(self.address, self.pub_key, self.voting_power)
+        return Validator(
+            self.address, self.pub_key, self.voting_power, self.proposer_priority
+        )
 
 
 class ValidatorSet:
@@ -50,6 +55,9 @@ class ValidatorSet:
     def quorum_power(self) -> int:
         """The 2/3+1 stake threshold (types/vote_set.go:158)."""
         return self._total_voting_power * 2 // 3 + 1
+
+    def has_address(self, address: bytes) -> bool:
+        return address in self._by_address
 
     def get_by_address(self, address: bytes) -> tuple[int, Validator | None]:
         idx = self._by_address.get(address)

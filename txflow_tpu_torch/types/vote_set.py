@@ -121,6 +121,12 @@ class TxVoteSet:
         with self._mtx:
             return [v.copy() for v in self.votes.values()]
 
+    def votes_snapshot(self) -> list[TxVote]:
+        """Uncopied vote list for a caller that owns the set (the engine,
+        after popping it from its in-flight map)."""
+        with self._mtx:
+            return list(self.votes.values())
+
     def get_by_address(self, address: bytes) -> TxVote | None:
         with self._mtx:
             return self.votes.get(address)
@@ -181,4 +187,35 @@ class TxVoteSet:
         self.sum += voting_power
         if self.val_set.quorum_power() <= self.sum:
             self.maj23 = True
+
+    # ---- validator-set churn (epoch rotation) ----
+
+    def revalidate(self, new_val_set: ValidatorSet) -> tuple[int, bool]:
+        """Re-evaluate this in-flight set against a NEW validator set.
+        Returns ``(dropped, newly_quorate)``:
+
+        - an already-latched certificate is immutable: (0, False), the set
+          untouched;
+        - votes from validators absent in the new set are discarded;
+        - surviving votes are re-weighted to their validator's new power,
+          and maj23 latches (True) iff the new quorum is now met -- a
+          shrinking total power can push a pending tx over the line."""
+        with self._mtx:
+            if self.maj23:
+                return 0, False
+            dropped = 0
+            new_sum = 0
+            for addr in list(self.votes):
+                _, val = new_val_set.get_by_address(addr)
+                if val is None:
+                    del self.votes[addr]
+                    dropped += 1
+                else:
+                    new_sum += val.voting_power
+            self.val_set = new_val_set
+            self.sum = new_sum
+            if new_val_set.quorum_power() <= new_sum:
+                self.maj23 = True
+                return dropped, True
+            return dropped, False
 

@@ -158,9 +158,22 @@ class ScalarVoteVerifier:
     """Golden model: per-vote host verify + int64 tally (reference semantics)."""
 
     def __init__(self, val_set: ValidatorSet):
-        self.val_set = val_set
-        self._pub_keys = [v.pub_key for v in val_set]
-        self._powers = val_set.powers_array()
+        self.restage(val_set)
+
+    @property
+    def val_set(self) -> ValidatorSet:
+        return self._stage[0]
+
+    def restage(self, new_val_set: ValidatorSet) -> bool:
+        """Swap in a new validator set (epoch rotation) in place. A call in
+        progress finishes against the stage it read; the next call sees
+        the new set."""
+        # one tuple, read once per call: never one set's keys with
+        # another's powers
+        self._stage = (
+            new_val_set, [v.pub_key for v in new_val_set], new_val_set.powers_array()
+        )
+        return True
 
     def verify_and_tally(
         self,
@@ -173,12 +186,13 @@ class ScalarVoteVerifier:
         quorum: int | None = None,
     ) -> TallyResult:
         n = len(msgs)
+        val_set, pub_keys, powers = self._stage[:3]
         keep = first_occurrence_mask(tx_slot, val_idx)
         valid = np.zeros(n, dtype=bool)
         for i in range(n):
             vi = int(val_idx[i])
-            if keep[i] and 0 <= vi < len(self._pub_keys):
-                valid[i] = host_ed.verify(self._pub_keys[vi], msgs[i], sigs[i])
+            if keep[i] and 0 <= vi < len(pub_keys):
+                valid[i] = host_ed.verify(pub_keys[vi], msgs[i], sigs[i])
         stake = (
             np.zeros(n_slots, dtype=np.int64)
             if prior_stake is None
@@ -187,8 +201,8 @@ class ScalarVoteVerifier:
         for i in range(n):
             s = int(tx_slot[i])
             if valid[i] and 0 <= s < n_slots:
-                stake[s] += int(self._powers[val_idx[i]])
-        q = self.val_set.quorum_power() if quorum is None else quorum
+                stake[s] += int(powers[val_idx[i]])
+        q = val_set.quorum_power() if quorum is None else quorum
         return TallyResult(valid, stake, stake >= q, ~keep)
 
     def submit(
