@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py                # one card: build, kernels, slice, committee
+    python3 chip_smoke.py                # one card: build, kernels, slice, committee, mesh
     python3 chip_smoke.py --cross-card   # two or more cards: the kernels on each
+    python3 chip_smoke.py --mesh         # four cards: K5/K7 and the mesh cell over them
 
 1. Builds the CUDA sources of txflow_tpu_torch/csrc with nvcc (one process
    per source, in parallel) and prints the card and the build time.
@@ -40,6 +41,25 @@
    to the server's, and every certificate batch through K6 (no host
    verify). Prints the phase's JSON line before the kernels' line.
 
+5. Mesh (K5, K7): BASELINE config 4 -- a 64-validator net (powers
+   10 * (1 + i mod 4)) with mixed honest and byzantine signatures, its 1M
+   in-flight txs cut to 4096: 262,144 votes, about 1/8 byzantine in the
+   three ways above, shuffled -- through TxFlow.step() with
+   EngineConfig(max_batch=65536, max_slots=4096, mesh_devices=4) on a
+   DeviceVoteVerifier over 4 shards laid round-robin over the visible
+   cards (on one card, 4 shards on it): 4 steps of 4 x 16384 rows, each
+   shard's verify + partial tally on its card, the partials crossing by
+   peer copies and summed with the prior on every card. On the first
+   step's votes, in the same count of launches, the K5 entry points
+   (sharded_verify_and_tally over the mesh, verify_batch on one shard's
+   worth) and the ring step. Checks: the committed set known by
+   construction, 4 verify launches a sharded step, K5 and the ring equal
+   to the construction; then the one-card engine (max_batch 65536) on the
+   same votes must give identical certificate bytes and app digest. K5
+   and the K7 kernels (partial tally, reduce-quorum, ring hop, the whole
+   sharded step) are held bit-exact against their plain versions at those
+   shapes and timed. Prints the phase's JSON line before the kernels'.
+
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0), and
 without CUDA the script exits 1 before printing any result.
@@ -48,6 +68,9 @@ without CUDA the script exits 1 before printing any result.
 copy of the verify library's __constant__ base table, so K1, K2 and K3
 run on every visible card, the last card first, each held against its
 plain version on the CPU and K3 also against the golden model.
+
+``--mesh`` runs only phase 5 and its kernel rows, over 4 distinct cards:
+the engine builds its own mesh from mesh_devices=4 (make_mesh).
 """
 
 from __future__ import annotations
@@ -71,6 +94,10 @@ from txflow_tpu_torch.crypto import ed25519 as host_ed
 from txflow_tpu_torch.engine import TxExecutor, TxFlow
 from txflow_tpu_torch.epoch import EpochConfig
 from txflow_tpu_torch.ops import _lib, curve, ed25519_batch, fe, tally
+from txflow_tpu_torch.parallel import (
+    Mesh, make_mesh, sharded_compact_step_packed, sharded_ring_step, sharded_verify_and_tally,
+    to_host,
+)
 from txflow_tpu_torch.pool import Mempool, TxVotePool
 from txflow_tpu_torch.state import StateStore
 from txflow_tpu_torch.store import MemDB, TxStore
@@ -97,6 +124,16 @@ COM_SIZE = 32  # EpochConfig(length=1, committee_size=32): vote height h -> epoc
 COM_TXS = 2048  # per vote height (0 and 1)
 # K6 timing rows; 16384 is a step's rung, 4096 a sync group's
 K6_RUNGS = (8, 64, 1024, 4096, 8192, 16384)
+# mesh phase: BASELINE config 4, a 64-validator net with mixed honest and
+# byzantine signatures; its 1M in-flight txs cut to 4096 (signing time)
+MESH_VALS = 64
+MESH_TXS = 4096
+MESH_SHARDS = 4
+MESH_BATCH = 65536  # EngineConfig.max_batch: 4 steps of 4 shards x 16384 rows
+MESH_SLOTS = 4096
+# byzantine votes of a tx's 64: mean 8.2 (1/8); 24 or 28 leave it below quorum
+MESH_BYZ = (0, 4, 8, 12, 24, 28)
+MESH_BYZ_P = (0.25, 0.25, 0.2, 0.15, 0.1, 0.05)
 # published HBM rates (NVIDIA data sheets); SXM is the default
 HBM_BYTES_PER_S = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
 
@@ -140,20 +177,28 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def cuda_ms_window(fn, launches: int, warmup: int = 2) -> float:
+def cuda_ms_window(fn, launches: int, warmup: int = 2, devices=None) -> float:
     """Milliseconds per call of ``fn``: ``launches`` calls between one pair
     of CUDA events, divided by their number (a window around one launch
-    reads the host's launch path more than the kernel)."""
+    reads the host's launch path more than the kernel). With ``devices``,
+    a pair of events on each card's current stream, the slowest card's
+    window kept (a step that runs on several cards)."""
+    cards = list(devices) if devices else [torch.device("cuda", torch.cuda.current_device())]
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    e0.record()
+    for c in cards:
+        torch.cuda.synchronize(c)
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in cards]
+    for (e0, _), c in zip(pairs, cards):
+        e0.record(torch.cuda.current_stream(c))
     for _ in range(launches):
         fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / launches
+    for (_, e1), c in zip(pairs, cards):
+        e1.record(torch.cuda.current_stream(c))
+    for c in cards:
+        torch.cuda.synchronize(c)
+    return max(e0.elapsed_time(e1) for e0, e1 in pairs) / launches
 
 
 def bound_ms(card: dict, nbytes: float, mads: float) -> tuple[float, str]:
@@ -176,14 +221,19 @@ def require(cond: bool, what: str) -> None:
 
 
 class Corpus:
-    """16 validators with powers 10 * (1 + i mod 4), 4096 txs, one vote per
-    (tx, validator); about 1/8 of the votes byzantine (a flipped signature
-    byte, or a wrong-chain signature as MockPV(break_tx_vote_signing=True)
-    makes), spread so that some txs stay below quorum."""
+    """``n_vals`` validators with powers 10 * (1 + i mod 4), ``n_txs`` txs,
+    one vote per (tx, validator); about 1/8 of the votes byzantine (a
+    flipped signature byte, or a wrong-chain signature as
+    MockPV(break_tx_vote_signing=True) makes), ``byz[k]`` of them on a tx
+    with probability ``byz_p[k]``, spread so that some txs stay below
+    quorum. The defaults are the slice cell's 16 validators."""
 
-    def __init__(self, seed: int):
+    def __init__(self, seed: int, n_vals: int = N_VALS, n_txs: int = N_TXS,
+                 byz=tuple(range(6)), byz_p=(0.2, 0.2, 0.2, 0.2, 0.1, 0.1),
+                 prefix: bytes = b"stx"):
         rng = np.random.default_rng(seed)
-        self.seeds = [rng.bytes(32) for _ in range(N_VALS)]
+        self.n_vals, self.n_txs = n_vals, n_txs
+        self.seeds = [rng.bytes(32) for _ in range(n_vals)]
         pubs = [host_ed.public_key_from_seed(s) for s in self.seeds]
         vals = [Validator.from_pub_key(p, 10 * (1 + i % 4)) for i, p in enumerate(pubs)]
         self.val_set = ValidatorSet(vals)
@@ -192,28 +242,28 @@ class Corpus:
         self.val_seeds = [seed_of[v.address] for v in self.val_set]
         self.powers = [v.voting_power for v in self.val_set]
         self.quorum = self.val_set.quorum_power()
-        self.txs = [b"stx%05d=%d" % (i, i) for i in range(N_TXS)]
-        # byzantine votes per tx: 0..5 of the 16 (mean 2 = 1/8 of votes)
-        n_byz = rng.choice(6, size=N_TXS, p=[0.2, 0.2, 0.2, 0.2, 0.1, 0.1])
+        self.txs = [prefix + b"%05d=%d" % (i, i) for i in range(n_txs)]
+        # byzantine votes per tx (slice cell: 0..5 of 16, mean 2 = 1/8)
+        n_byz = np.asarray(byz)[rng.choice(len(byz), size=n_txs, p=list(byz_p))]
         self.votes: list[TxVote] = []
         self.byzantine: list[bool] = []
         self.kind: list[str] = []
         msgs = []
         for t, tx in enumerate(self.txs):
             key = hashlib.sha256(tx).digest()
-            byz = set(rng.choice(N_VALS, size=int(n_byz[t]), replace=False).tolist())
-            for v in range(N_VALS):
+            byz_v = set(rng.choice(n_vals, size=int(n_byz[t]), replace=False).tolist())
+            for v in range(n_vals):
                 vote = TxVote(HEIGHT, key.hex().upper(), key, 1_700_000_000_000_000_000 + t,
                               self.val_set.validators[v].address)
                 kind = "honest"
                 chain = CHAIN_ID
-                if v in byz:
+                if v in byz_v:
                     kind = ("flip_r", "flip_s", "wrong_chain")[int(rng.integers(3))]
                     if kind == "wrong_chain":
                         chain = "incorrect-chain-id"
                 msgs.append((self.val_seeds[v], vote.sign_bytes(chain)))
                 self.votes.append(vote)
-                self.byzantine.append(v in byz)
+                self.byzantine.append(v in byz_v)
                 self.kind.append(kind)
         t0 = time.perf_counter()
         sigs = _sign_all(msgs)
@@ -233,10 +283,10 @@ class Corpus:
             MockPV(self.val_seeds[vi], break_tx_vote_signing=True).sign_tx_vote(CHAIN_ID, twin)
             require(twin.signature == v.signature, "wrong-chain vote != MockPV(break)")
         # expected outcome by construction: honest stake >= quorum commits
-        honest = np.zeros(N_TXS, np.int64)
+        honest = np.zeros(n_txs, np.int64)
         for i, vote in enumerate(self.votes):
             if not self.byzantine[i]:
-                honest[i // N_VALS] += self.powers[i % N_VALS]
+                honest[i // n_vals] += self.powers[i % n_vals]
         self.expect_commit = honest >= self.quorum
         # gossip arrival order: shuffled
         self.order = rng.permutation(len(self.votes))
@@ -452,65 +502,62 @@ def kernel_phase(card: dict, corpus: Corpus, dev) -> list[dict]:
 # Phase 3: the slice
 
 
-def slice_phase(corpus: Corpus, dev) -> dict:
+def _node(corpus: Corpus, config: EngineConfig, verifier=None):
+    """One node's pools, stores and engine, the corpus' txs in the mempool
+    and its votes in the vote pool in arrival order."""
     conns = AppConns(KVStoreApplication())
-    mempool = Mempool(MempoolConfig(size=2 * N_TXS, cache_size=4 * N_TXS), conns.mempool)
-    commitpool = Mempool(MempoolConfig(size=2 * N_TXS, cache_size=4 * N_TXS))
-    n_votes = len(corpus.votes)
+    n_txs, n_votes = len(corpus.txs), len(corpus.votes)
+    mempool = Mempool(MempoolConfig(size=2 * n_txs, cache_size=4 * n_txs), conns.mempool)
+    commitpool = Mempool(MempoolConfig(size=2 * n_txs, cache_size=4 * n_txs))
     votepool = TxVotePool(MempoolConfig(size=2 * n_votes, cache_size=2 * n_votes))
-    tx_store = TxStore(MemDB())
+    store = TxStore(MemDB())
     flow = TxFlow(CHAIN_ID, HEIGHT, corpus.val_set, votepool, mempool, commitpool,
-                  TxExecutor(conns.consensus, mempool), tx_store,
-                  config=EngineConfig(max_batch=MAX_BATCH, device=str(dev)))
-    require(isinstance(flow.verifier, DeviceVoteVerifier), "engine is not on the device verifier")
+                  TxExecutor(conns.consensus, mempool), store, config=config, verifier=verifier)
     require(not any(mempool.check_tx_many(corpus.txs)), "mempool rejected a tx")
-    errs = votepool.check_tx_many([corpus.votes[i] for i in corpus.order])
-    require(not any(errs), "vote pool rejected a vote")
+    require(not any(votepool.check_tx_many([corpus.votes[i] for i in corpus.order])),
+            "vote pool rejected a vote")
+    return flow, store, conns.app
 
-    host_calls, restore_host = _count_host_verifies()
+
+def _drive(flow, dev) -> dict:
+    """TxFlow.step() until the pool is drained: host stages, device time
+    per step, step times; the outcome is read by the caller."""
     tally_step = tally.compact_step_packed
     stages, device_ms = _time_stages(flow, dev)
     step_s = []
-    _lib.reset_launches()
     try:
         t0 = time.perf_counter()
         while True:
             ts = time.perf_counter()
-            done = flow.step()
-            if not done:
+            if not flow.step():
                 break
             step_s.append(time.perf_counter() - ts)
         wall = time.perf_counter() - t0
     finally:
-        restore_host()
         tally.compact_step_packed = tally_step
-    launches = dict(_lib.launches)
-    log(f"slice: {len(step_s)} steps, launches {launches}, host verifies {host_calls['n']}")
-    require(launches["verify"] > 0 and launches["tally"] > 0, "a kernel of the path never ran")
-    # one timed device step per verify + tally pair: the timing wrapper saw them all
-    require(len(device_ms) == launches["verify"] == launches["tally"],
-            f"{len(device_ms)} timed device steps for launches {launches}")
-    require(host_calls["n"] == 0, "a host (scalar) verify ran")
+    stage_ms = {k: v * 1e3 for k, v in stages.items()}
+    stage_ms["route"] -= stage_ms["commit"]  # commits run inside routing
+    return {"steps": len(step_s), "step_s": step_s, "p50_step_ms": statistics.median(step_s) * 1e3,
+            "wall_s": wall, "stage_ms_total": stage_ms, "device_ms_per_step": device_ms,
+            "device_busy_share": sum(device_ms) / (sum(step_s) * 1e3)}
 
-    # the outcome known by construction
-    app = conns.app
-    committed = np.array([flow.is_tx_committed(hashlib.sha256(tx).hexdigest().upper())
-                          for tx in corpus.txs])
+
+def _outcome(corpus: Corpus, flow, store, app) -> dict:
+    """The committed set, certificates and in-flight stake against the
+    construction; returns the certificate rows and counts."""
+    hashes = [hashlib.sha256(tx).hexdigest().upper() for tx in corpus.txs]
+    committed = np.array([flow.is_tx_committed(h) for h in hashes])
     require(bool((committed == corpus.expect_commit).all()),
             f"committed {int(committed.sum())} txs, expected {int(corpus.expect_commit.sum())}")
-    require(0 < committed.sum() < N_TXS, "the byzantine spread left no tx below quorum")
+    require(0 < committed.sum() < len(hashes), "the byzantine spread left no tx below quorum")
     want_keys = {tx.split(b"=")[0] for tx, c in zip(corpus.txs, committed) if c}
     require(set(app.state) == want_keys and app.tx_count == len(want_keys), "app state")
-    byz = {}
-    for i, v in enumerate(corpus.votes):
-        byz[(v.tx_hash, v.validator_address)] = corpus.byzantine[i]
+    byz = {(v.tx_hash, v.validator_address): b for v, b in zip(corpus.votes, corpus.byzantine)}
     power_of = {v.address: v.voting_power for v in corpus.val_set}
-    committed_votes = 0
-    certs = []
-    for tx, c in zip(corpus.txs, committed):
+    rows, committed_votes = {}, 0
+    for h, c in zip(hashes, committed):
         if not c:
             continue
-        h = hashlib.sha256(tx).hexdigest().upper()
         cert = flow.load_commit(h)
         require(cert is not None, "missing certificate")
         require(not any(byz[(h, cs.validator_address)] for cs in cert.commits),
@@ -518,7 +565,35 @@ def slice_phase(corpus: Corpus, dev) -> dict:
         require(sum(power_of[cs.validator_address] for cs in cert.commits) >= corpus.quorum,
                 "certificate below quorum")
         committed_votes += len(cert.commits)
-        certs.append(cert)
+        rows[h] = store.load_cert_row(h)
+    n = corpus.n_vals
+    for t in np.flatnonzero(~committed):
+        honest = sum(corpus.powers[v] for v in range(n) if not corpus.byzantine[t * n + v])
+        require(flow.vote_sets[hashes[t]].stake() == honest, "in-flight stake != honest stake")
+    return {"committed_txs": int(committed.sum()), "committed_votes": committed_votes,
+            "rows": rows, "digest": app.digest}
+
+
+def slice_phase(corpus: Corpus, dev) -> dict:
+    flow, store, app = _node(corpus, EngineConfig(max_batch=MAX_BATCH, device=str(dev)))
+    require(isinstance(flow.verifier, DeviceVoteVerifier), "engine is not on the device verifier")
+    host_calls, restore_host = _count_host_verifies()
+    _lib.reset_launches()
+    try:
+        run = _drive(flow, dev)
+    finally:
+        restore_host()
+    launches = dict(_lib.launches)
+    log(f"slice: {run['steps']} steps, launches {launches}, host verifies {host_calls['n']}")
+    require(launches["verify"] > 0 and launches["tally"] > 0, "a kernel of the path never ran")
+    # one timed device step per verify + tally pair: the timing wrapper saw them all
+    require(len(run["device_ms_per_step"]) == launches["verify"] == launches["tally"],
+            f"{len(run['device_ms_per_step'])} timed device steps for launches {launches}")
+    require(host_calls["n"] == 0, "a host (scalar) verify ran")
+    # the outcome known by construction, and a sample of certificates
+    # against the golden model
+    res = _outcome(corpus, flow, store, app)
+    certs = [flow.load_commit(h) for h in res["rows"]]
     pick = random.Random(SEED).sample(certs, min(64, len(certs)))
     pub_of = {v.address: v.pub_key for v in corpus.val_set}
     for cert in pick:
@@ -527,30 +602,22 @@ def slice_phase(corpus: Corpus, dev) -> dict:
                                         canonical_sign_bytes(CHAIN_ID, cs.height, cs.tx_hash,
                                                              cs.timestamp_ns),
                                         cs.signature), "certificate vote fails verify_pure")
-    # uncommitted txs keep exactly their honest stake in flight
-    for t in np.flatnonzero(~committed)[:64]:
-        h = hashlib.sha256(corpus.txs[t]).hexdigest().upper()
-        honest = sum(corpus.powers[v] for v in range(N_VALS)
-                     if not corpus.byzantine[t * N_VALS + v])
-        require(flow.vote_sets[h].stake() == honest, "in-flight stake != honest stake")
-    p50 = statistics.median(step_s)
-    stage_ms = {k: v * 1e3 for k, v in stages.items()}
-    stage_ms["route"] -= stage_ms["commit"]  # commits run inside routing
-    out = {"votes": n_votes, "txs": N_TXS, "validators": N_VALS, "quorum": corpus.quorum,
-           "steps": len(step_s), "step_s": step_s, "p50_step_ms": p50 * 1e3, "wall_s": wall,
-           "stage_ms_total": stage_ms, "device_ms_per_step": device_ms,
-           "device_busy_share": sum(device_ms) / (sum(step_s) * 1e3),
-           "committed_txs": int(committed.sum()), "committed_votes": committed_votes,
-           "committed_votes_per_s": committed_votes / wall, "votes_per_s": n_votes / wall,
+    n_votes = len(corpus.votes)
+    out = {"votes": n_votes, "txs": len(corpus.txs), "validators": corpus.n_vals,
+           "quorum": corpus.quorum, **run,
+           "committed_txs": res["committed_txs"], "committed_votes": res["committed_votes"],
+           "committed_votes_per_s": res["committed_votes"] / run["wall_s"],
+           "votes_per_s": n_votes / run["wall_s"],
            "launches": launches, "host_verifies": host_calls["n"], "sign_s": corpus.sign_s}
     log("slice: time by stage over the run (ms): " + ", ".join(
-        f"{k} {v:.1f}" for k, v in stage_ms.items())
+        f"{k} {v:.1f}" for k, v in run["stage_ms_total"].items())
         + "; device time per step (CUDA events around the verify + tally launches) "
-        + ", ".join(f"{d:.2f}" for d in device_ms)
+        + ", ".join(f"{d:.2f}" for d in run["device_ms_per_step"])
         + f" ms = {out['device_busy_share'] * 100:.2f}% of the step time")
-    log(f"slice: {out['committed_txs']}/{N_TXS} txs committed as constructed, "
-        f"{committed_votes} certificate votes; {out['committed_votes_per_s']:.0f} committed votes/s, "
-        f"{out['votes_per_s']:.0f} votes/s, p50 step {out['p50_step_ms']:.1f} ms over {len(step_s)} steps")
+    log(f"slice: {out['committed_txs']}/{out['txs']} txs committed as constructed, "
+        f"{out['committed_votes']} certificate votes; {out['committed_votes_per_s']:.0f} committed "
+        f"votes/s, {out['votes_per_s']:.0f} votes/s, p50 step {out['p50_step_ms']:.1f} ms over "
+        f"{run['steps']} steps")
     return out
 
 
@@ -578,10 +645,14 @@ def _time_stages(flow, dev) -> tuple[dict, list]:
     """Wrap the engine's stage methods on this instance to add up host
     seconds per stage (drain + sign bytes; host prep + H2D + launch;
     readback wait; routing; commit effects), and record CUDA events around
-    the fused device step (verify + tally kernels) of each step."""
+    the device step of each step: the fused verify + tally kernels, or on
+    a mesh the whole sharded step (the H2D copies of its shards included),
+    read on every card of the mesh and the slowest card kept."""
     stages = {"drain": 0.0, "submit": 0.0, "collect": 0.0, "route": 0.0, "commit": 0.0}
     device_ms: list[float] = []
     events: list = []
+    mesh = getattr(flow.verifier, "mesh", None)
+    cards = list(dict.fromkeys(mesh.devices)) if mesh is not None else [dev]
 
     def timed(stage, fn):
         def wrapped(*a, **k):
@@ -592,25 +663,34 @@ def _time_stages(flow, dev) -> tuple[dict, list]:
                 stages[stage] += time.perf_counter() - t
         return wrapped
 
-    def device_step(*a, _fn=tally.compact_step_packed, **k):
-        if dev.type != "cuda":
-            return _fn(*a, **k)
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = _fn(*a, **k)
-        e1.record()
-        events.append((e0, e1))
-        return out
+    def with_events(fn):
+        def device_step(*a, **k):
+            if dev.type != "cuda":
+                return fn(*a, **k)
+            pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                     for _ in cards]
+            for (e0, _), c in zip(pairs, cards):
+                e0.record(torch.cuda.current_stream(c))
+            out = fn(*a, **k)
+            for (_, e1), c in zip(pairs, cards):
+                e1.record(torch.cuda.current_stream(c))
+            events.append(pairs)
+            return out
+        return device_step
 
     def collect(prep, ticket, _fn=timed("collect", flow._collect)):
         res = _fn(prep, ticket)
         while events:
-            e0, e1 = events.pop(0)
-            e1.synchronize()
-            device_ms.append(e0.elapsed_time(e1))
+            pairs = events.pop(0)
+            for _, e1 in pairs:
+                e1.synchronize()
+            device_ms.append(max(e0.elapsed_time(e1) for e0, e1 in pairs))
         return res
 
-    tally.compact_step_packed = device_step  # the verifier calls it through the module
+    if mesh is not None:
+        flow.verifier._step = with_events(flow.verifier._step)
+    else:  # the verifier calls it through the module
+        tally.compact_step_packed = with_events(tally.compact_step_packed)
     flow._prep_batch = timed("drain", flow._prep_batch)
     flow._submit_prep = timed("submit", flow._submit_prep)
     flow._collect = collect
@@ -999,6 +1079,317 @@ def committee_phase(com: "CommitteeCorpus", dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the mesh-sharded serving step (K5 and K7) -- BASELINE config 4
+
+
+def round_robin_mesh(n: int) -> Mesh:
+    """n shards over the visible cards in turn: on one card, n shards on
+    it (the counterpart of the JAX tests' virtual devices; a harness
+    choice -- the engine's make_mesh only ever takes distinct cards)."""
+    cards = torch.cuda.device_count()
+    return Mesh(tuple(torch.device("cuda", i % cards) for i in range(n)))
+
+
+class FirstBatch:
+    """The first MESH_BATCH votes in arrival order (the first sharded
+    step's drain), on the host: K3's compact prep, K5's per-vote tables,
+    slots, each vote's power, and the construction's verdicts."""
+
+    def __init__(self, corpus: Corpus, n: int):
+        self.epoch = epoch = ed25519_batch.EpochTables([v.pub_key for v in corpus.val_set])
+        order = corpus.order[:n]
+        votes = [corpus.votes[i] for i in order]
+        self.msgs = [canonical_sign_bytes(CHAIN_ID, v.height, v.tx_hash, v.timestamp_ns) for v in votes]
+        self.sigs = [v.signature for v in votes]
+        self.vix = np.array([corpus.val_set.index_of(v.validator_address) for v in votes])
+        slot_of: dict[str, int] = {}
+        self.slots = np.array([slot_of.setdefault(v.tx_hash, len(slot_of)) for v in votes], np.int32)
+        self.n_slots = len(slot_of)
+        self.byz = np.array([corpus.byzantine[i] for i in order])
+        self.power = np.asarray(corpus.powers, np.int32)[self.vix]
+        self.compact = ed25519_batch.prepare_compact(self.msgs, self.sigs, self.vix, epoch)
+        self.tables = ed25519_batch.prepare_batch(self.msgs, self.sigs, self.vix, epoch)
+        # what a verify and a tally of these votes must give
+        self.want_valid = ~self.byz
+        self.want_stake = np.zeros(MESH_SLOTS, np.int64)
+        np.add.at(self.want_stake, self.slots, np.where(self.byz, 0, self.power))
+
+    def compact_args(self):
+        c = self.compact
+        return [torch.from_numpy(np.ascontiguousarray(x)) for x in (
+            c.s_nibbles, c.h_nibbles, c.val_idx, c.r_y, c.r_sign, c.pre_ok, self.slots)]
+
+    def table_args(self, rows=slice(None)):
+        t = self.tables
+        return tuple(torch.from_numpy(np.ascontiguousarray(x[rows])) for x in (
+            t.s_nibbles, t.h_nibbles, t.a_tables, t.r_y, t.r_sign, t.pre_ok))
+
+
+def mesh_phase(corpus: Corpus, mesh: Mesh, engine_builds_mesh: bool) -> tuple[dict, FirstBatch]:
+    """The mesh-sharded serving step, then the same votes on one card.
+
+    The mesh path, between one reset and one read of the launch counts:
+    TxFlow.step() with EngineConfig(max_batch=MESH_BATCH, max_slots=
+    MESH_SLOTS, mesh_devices=MESH_SHARDS) -- the engine builds its mesh of
+    distinct cards when ``engine_builds_mesh``, else it mounts a
+    DeviceVoteVerifier over ``mesh`` -- then, on the first step's votes,
+    the K5 entry points (sharded_verify_and_tally over the mesh, and
+    verify_batch on one shard's worth) and the ring step. Each of those is
+    checked against the construction. Then the one-card engine at
+    max_batch MESH_BATCH: certificate bytes and app digest must equal the
+    mesh run's."""
+    dev0 = mesh.devices[0]
+    cfg = EngineConfig(max_batch=MESH_BATCH, max_slots=MESH_SLOTS, mesh_devices=MESH_SHARDS)
+    verifier = None if engine_builds_mesh else DeviceVoteVerifier(corpus.val_set, mesh=mesh)
+    flow, store, app = _node(corpus, cfg, verifier)
+    require(flow.verifier.mesh is not None and flow.verifier.mesh.size == MESH_SHARDS,
+            "engine is not on the mesh")
+    if engine_builds_mesh:
+        require(flow.verifier.mesh.devices == mesh.devices, "engine mesh != make_mesh(4)")
+    t0 = time.perf_counter()
+    fb = FirstBatch(corpus, MESH_BATCH)
+    epoch = fb.epoch
+    prep_s = time.perf_counter() - t0
+    host_calls, restore_host = _count_host_verifies()
+    quorum = corpus.quorum
+    _lib.reset_launches()
+    try:
+        run = _drive(flow, dev0)
+        engine_launches = dict(_lib.launches)
+        # the K5 entry points and the ring step, on the first step's votes
+        prior0 = torch.zeros(MESH_SLOTS, dtype=torch.int32)
+        svt = sharded_verify_and_tally(mesh)(
+            fb.table_args(), torch.from_numpy(fb.slots), torch.from_numpy(fb.power), prior0, quorum)
+        vb = ed25519_batch.verify_batch(
+            ed25519_batch.PreparedBatch(*(x[:MESH_BATCH // MESH_SHARDS] for x in (
+                fb.tables.s_nibbles, fb.tables.h_nibbles, fb.tables.a_tables, fb.tables.r_y,
+                fb.tables.r_sign, fb.tables.pre_ok))), device=dev0)
+        tables_r = mesh.replicate(epoch.device_tables(dev0))
+        powers_r = mesh.replicate(torch.tensor(corpus.powers, dtype=torch.int32))
+        ring = sharded_ring_step(mesh)(*fb.compact_args(), tables_r, powers_r, prior0, quorum)
+        for d in dict.fromkeys(mesh.devices):
+            torch.cuda.synchronize(d)
+    finally:
+        restore_host()
+    launches = dict(_lib.launches)
+    steps = run["steps"]
+    log(f"mesh: {steps} sharded steps over {[str(d) for d in mesh.devices]}, engine launches "
+        f"{engine_launches}; with the K5 entry points and the ring step {launches}; "
+        f"host verifies {host_calls['n']}")
+    per_step = {k: MESH_SHARDS * steps for k in ("verify", "tally_partial", "reduce_quorum")}
+    require({k: engine_launches[k] for k in per_step} == per_step,
+            f"engine launches {engine_launches}: not {MESH_SHARDS} of each a sharded step")
+    require(engine_launches["tally"] == 0 and engine_launches["verify_tables"] == 0
+            and engine_launches["ring_add"] == 0, "a kernel off the sharded step ran in the engine")
+    require(len(run["device_ms_per_step"]) == steps, "a sharded step went untimed")
+    require(launches["verify_tables"] == MESH_SHARDS + 1, "K5 launches")
+    require(launches["ring_add"] == MESH_SHARDS * (MESH_SHARDS - 1), "ring hops")
+    require(launches["verify"] == per_step["verify"] + MESH_SHARDS, "ring step's verify launches")
+    require(launches["tally_partial"] == per_step["tally_partial"] + 2 * MESH_SHARDS
+            and launches["reduce_quorum"] == per_step["reduce_quorum"] + 2 * MESH_SHARDS,
+            "sharded_verify_and_tally / ring step tally launches")
+    require(host_calls["n"] == 0, "a host (scalar) verify ran")
+    # the K5 and ring results against the construction
+    want_stake = torch.from_numpy(fb.want_stake.astype(np.int32))
+    want_maj = want_stake >= quorum
+    require(bool((to_host(svt[0]).numpy() == fb.want_valid).all()), "sharded K5 valid != construction")
+    require(bool((vb == fb.want_valid[: len(vb)]).all()), "verify_batch != construction")
+    require(bool((to_host(ring[0]).numpy() == fb.want_valid).all()), "ring step valid != construction")
+    for sh in range(MESH_SHARDS):
+        for name, (st, mj) in (("sharded_verify_and_tally", (svt[1][sh], svt[2][sh])),
+                               ("ring step", (ring[1][sh], ring[2][sh]))):
+            require(bool((st.cpu() == want_stake).all() and (mj.cpu() == want_maj).all()),
+                    f"{name}: shard {sh}'s tally != construction")
+    mesh_out = _outcome(corpus, flow, store, app)
+
+    # the same votes through the one-card engine
+    flow1, store1, app1 = _node(corpus, EngineConfig(
+        max_batch=MESH_BATCH, max_slots=MESH_SLOTS, device=str(dev0)))
+    require(flow1.verifier.mesh is None, "one-card engine on a mesh")
+    _lib.reset_launches()
+    run1 = _drive(flow1, dev0)
+    launches1 = dict(_lib.launches)
+    require(launches1["verify"] == launches1["tally"] == run1["steps"] > 0, f"one-card launches {launches1}")
+    one_out = _outcome(corpus, flow1, store1, app1)
+    require(one_out["rows"] == mesh_out["rows"], "certificate bytes differ between mesh and one card")
+    require(one_out["digest"] == mesh_out["digest"], "app digest differs between mesh and one card")
+    out = {"validators": corpus.n_vals, "txs": len(corpus.txs), "votes": len(corpus.votes),
+           "quorum": quorum, "shards": MESH_SHARDS, "devices": [str(d) for d in mesh.devices],
+           "engine_built_mesh": engine_builds_mesh, "first_batch_prep_s": prep_s,
+           "launches": launches, "engine_launches": engine_launches,
+           "committed_txs": mesh_out["committed_txs"], "committed_votes": mesh_out["committed_votes"],
+           "certificates_equal_one_card": True, "digest_equal_one_card": True,
+           "host_verifies": host_calls["n"], "sign_s": corpus.sign_s}
+    for name, r, o in (("mesh", run, mesh_out), ("one_card", run1, one_out)):
+        r["committed_votes_per_s"] = o["committed_votes"] / r["wall_s"]
+        out[name] = r
+        log(f"mesh phase, {name}: {r['steps']} steps, p50 step {r['p50_step_ms']:.1f} ms, "
+            f"{r['committed_votes_per_s']:.0f} committed votes/s; host stages (ms) "
+            + ", ".join(f"{k} {v:.1f}" for k, v in r["stage_ms_total"].items())
+            + "; device ms per step " + ", ".join(f"{d:.2f}" for d in r["device_ms_per_step"])
+            + f" = {r['device_busy_share'] * 100:.2f}% of the step time")
+    log(f"mesh: {mesh_out['committed_txs']}/{len(corpus.txs)} txs committed as constructed, "
+        f"{mesh_out['committed_votes']} certificate votes; certificate bytes and app digest "
+        f"equal to the one-card run's")
+    return out, fb
+
+
+def mesh_rows(card: dict, corpus: Corpus, mesh: Mesh, fb: FirstBatch, launches: dict,
+              steps: int) -> list[dict]:
+    """K5 and the K7 kernels at the per-shard shapes the mesh path
+    launches, each bit-exact against its plain version on the card and
+    timed over many launches in one CUDA-event window; and the whole
+    sharded step against the plain verify + tally of the full batch."""
+    rows = []
+    dev0 = mesh.devices[0]
+    bs, S, n = MESH_BATCH // MESH_SHARDS, MESH_SLOTS, MESH_SHARDS
+    rng = np.random.default_rng(SEED + 5)
+
+    def on0(ts):
+        return [t.to(dev0) for t in ts]
+
+    # K5 on shard 0's rows
+    k5_args = on0(fb.table_args(slice(0, bs)))
+    k5 = ed25519_batch.verify_kernel(*k5_args)
+    p5 = ed25519_batch.verify_kernel_plain(*k5_args)
+    torch.cuda.synchronize(dev0)
+    require(bool((k5 == p5).all()), "K5 kernel != plain")
+    require(bool((k5.cpu().numpy() == fb.want_valid[:bs]).all()), "K5 != construction")
+    n_ok = int(fb.tables.pre_ok[:bs].sum())
+    ms = cuda_ms_window(lambda: ed25519_batch.verify_kernel(*k5_args), 10)
+    pms = cuda_ms(lambda: ed25519_batch.verify_kernel_plain(*k5_args), 2)
+    bnd, by = bound_ms(card, nbytes(*k5_args) + bs * 4, n_ok * ed25519_batch.MADS_PER_SIGNATURE)
+    rows.append(dict(name="K5 ed25519 verify over per-vote tables (txf_verify_tables)", route="cuda",
+                     source="txflow_tpu_torch/csrc/verify.cu",
+                     replaces="txflow_tpu/ops/ed25519_batch.py:146", launches=launches["verify_tables"],
+                     max_abs_err=int((k5.int() - p5.int()).abs().max()), ms=ms, plain_ms=pms,
+                     bound_ms=bnd, bound_by=by, library_ms=None,
+                     shape=f"{bs} rows (one shard), {n_ok} past the host pre-checks"))
+    log(f"K5 verify_tables: bit-exact over {bs} rows; {ms:.3f} ms (plain {pms:.1f} ms, "
+        f"bound {bnd:.4f} ms by {by})")
+
+    # K7 partial tally of each shard (K3's valid, per-validator powers)
+    c = fb.compact
+    powers = torch.tensor(corpus.powers, dtype=torch.int32, device=dev0)
+    valid = torch.from_numpy(fb.want_valid.astype(np.int32)).to(dev0)
+    slot = torch.from_numpy(fb.slots).to(dev0)
+    vidx = torch.from_numpy(np.ascontiguousarray(c.val_idx)).to(dev0)
+    parts, plains = [], []
+    for sh in range(n):
+        r = slice(sh * bs, (sh + 1) * bs)
+        parts.append(tally.tally_partial(valid[r], slot[r], vidx[r], powers, S))
+        plains.append(tally.tally_partial_plain(valid[r], slot[r], vidx[r], powers, S))
+    torch.cuda.synchronize(dev0)
+    require(all(bool((a == b).all()) for a, b in zip(parts, plains)), "K7 partial tally != plain")
+    v0, s0, i0 = valid[:bs], slot[:bs], vidx[:bs]
+    ms = cuda_ms_window(lambda: tally.tally_partial(v0, s0, i0, powers, S), 500, warmup=5)
+    pms = cuda_ms(lambda: tally.tally_partial_plain(v0, s0, i0, powers, S), 20, warmup=2)
+    slot_c, in_range = s0.long().clamp(0, S - 1), (s0 >= 0) & (s0 < S)
+    zeros = torch.zeros(S, dtype=torch.int32, device=dev0)
+
+    def library_partial():  # power gather, the mask and index_add
+        return zeros.index_add(0, slot_c, torch.where((v0 > 0) & in_range, powers[i0.long()], 0))
+
+    require(bool((library_partial() == parts[0]).all()), "index_add partial != kernel")
+    lib_ms = cuda_ms_window(library_partial, 500, warmup=5)
+    bnd, by = bound_ms(card, nbytes(v0, s0, i0, powers) + S * 4, bs)
+    rows.append(dict(name="K7 per-shard partial tally (txf_tally_partial)", route="cuda",
+                     source="txflow_tpu_torch/csrc/tally.cu", replaces="txflow_tpu/parallel/mesh.py:114",
+                     launches=launches["tally_partial"],
+                     max_abs_err=int(max((a - b).abs().max() for a, b in zip(parts, plains))),
+                     ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+                     shape=f"{bs} votes, {S} slots"))
+    log(f"K7 partial: bit-exact on {n} shards; {ms:.4f} ms (plain {pms:.3f}, index_add {lib_ms:.4f}, "
+        f"bound {bnd:.6f} ms by {by})")
+
+    # K7 reduce-quorum: the n partials and a prior that takes about half
+    # the slots over quorum (the first step alone holds a quarter of the votes)
+    q = corpus.quorum
+    prior = torch.from_numpy(rng.integers(q // 2, q, S).astype(np.int32)).to(dev0)
+    stacked = torch.stack(parts)
+    quorum = corpus.quorum
+    st, mj = tally.reduce_quorum(stacked, prior, quorum)
+    pst, pmj = tally.reduce_quorum_plain(stacked, prior, quorum)
+    torch.cuda.synchronize(dev0)
+    require(bool((st == pst).all() and (mj == pmj).all()), "K7 reduce-quorum != plain")
+    require(bool(((st.cpu() - prior.cpu()) == torch.from_numpy(fb.want_stake.astype(np.int32))).all()),
+            "K7 reduce of the partials != construction")
+    require(0 < int(mj.sum()) < S, "reduce case too weak")
+    ms = cuda_ms_window(lambda: tally.reduce_quorum(stacked, prior, quorum), 500, warmup=5)
+    pms = cuda_ms(lambda: tally.reduce_quorum_plain(stacked, prior, quorum), 20, warmup=2)
+
+    def library_reduce():  # one PyTorch reduction + the prior + the compare
+        total = torch.stack(parts).sum(0) + prior
+        return total, total >= quorum
+
+    lt, lm = library_reduce()
+    require(bool((lt == st).all() and (lm.int() == mj).all()), "torch reduction != kernel")
+    lib_ms = cuda_ms_window(library_reduce, 500, warmup=5)
+    bnd, by = bound_ms(card, nbytes(stacked, prior) + 2 * S * 4, (n + 1) * S)
+    rows.append(dict(name="K7 psum: partials + prior >= quorum (txf_reduce_quorum)", route="cuda",
+                     source="txflow_tpu_torch/csrc/tally.cu", replaces="txflow_tpu/ops/tally.py:101",
+                     launches=launches["reduce_quorum"],
+                     max_abs_err=int(max((st - pst).abs().max(), (mj - pmj).abs().max())),
+                     ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+                     shape=f"{n} partials x {S} slots"))
+    log(f"K7 reduce-quorum: bit-exact; {ms:.4f} ms (plain {pms:.3f}, torch.stack().sum(0) + prior "
+        f"and compare {lib_ms:.4f}, bound {bnd:.6f} ms by {by})")
+
+    # K7 ring hop
+    a, b = parts[0], parts[1]
+    k = tally.ring_add(a, b)
+    require(bool((k == tally.ring_add_plain(a, b)).all()), "K7 ring add != plain")
+    ms = cuda_ms_window(lambda: tally.ring_add(a, b), 500, warmup=5)
+    pms = cuda_ms(lambda: tally.ring_add_plain(a, b), 20, warmup=2)
+    lib_ms = cuda_ms_window(lambda: torch.add(a, b), 500, warmup=5)
+    bnd, by = bound_ms(card, 3 * S * 4, S)
+    rows.append(dict(name="K7 ring hop accumulate (txf_add)", route="cuda",
+                     source="txflow_tpu_torch/csrc/tally.cu", replaces="txflow_tpu/parallel/mesh.py:130",
+                     launches=launches["ring_add"], max_abs_err=int((k - (a + b)).abs().max()),
+                     ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+                     shape=f"{S} slots"))
+    log(f"K7 ring add: bit-exact; {ms:.4f} ms (plain {pms:.4f}, torch.add {lib_ms:.4f}, bound "
+        f"{bnd:.6f} ms by {by})")
+
+    # the whole sharded step on inputs already on their cards
+    epoch = fb.epoch
+    args = fb.compact_args()
+    shards = [mesh.shard(x) for x in args]
+    consts = [mesh.replicate(epoch.device_tables(dev0)), mesh.replicate(powers), mesh.replicate(prior)]
+    step = sharded_compact_step_packed(mesh)
+    got = to_host(step(*shards, *consts, quorum))
+    full = on0(args)
+    pv = ed25519_batch.verify_kernel_gather_plain(*full[:3], consts[0][0], *full[3:6])
+    pst, pmj = tally.tally_plain(pv, full[6], full[2], powers, prior, quorum)
+    want = torch.cat([torch.cat([pv[sh * bs:(sh + 1) * bs].int(), pst, pmj]) for sh in range(n)]).cpu()
+    require(bool((got == want).all()), "K7 sharded step != plain verify + tally")
+    cards = list(dict.fromkeys(mesh.devices))
+    ms = cuda_ms_window(lambda: step(*shards, *consts, quorum), 5, devices=cards)
+    t0 = time.perf_counter()
+    ed25519_batch.verify_kernel_gather_plain(*full[:3], consts[0][0], *full[3:6])
+    tally.tally_plain(pv, full[6], full[2], powers, prior, quorum)
+    torch.cuda.synchronize(dev0)
+    pms = (time.perf_counter() - t0) * 1e3
+    n_ok = int(c.pre_ok.sum())
+    k_cards = len(cards)
+    scaled = dict(card, hbm_bytes_per_s=card["hbm_bytes_per_s"] * k_cards,
+                  imad_per_s=card["imad_per_s"] * k_cards)
+    bnd, by = bound_ms(scaled, nbytes(*args) + nbytes(consts[0][0], powers, prior)
+                       + n * (bs + 2 * S) * 4, n_ok * ed25519_batch.MADS_PER_SIGNATURE)
+    rows.append(dict(name="K7 sharded fused step (per shard txf_verify + txf_tally_partial, "
+                          "peer copies, txf_reduce_quorum)", route="cuda",
+                     source="txflow_tpu_torch/parallel/mesh.py", replaces="txflow_tpu/parallel/mesh.py:114",
+                     launches=steps, max_abs_err=int((got - want).abs().max()), ms=ms, plain_ms=pms,
+                     bound_ms=bnd, bound_by=by, library_ms=None, cards=k_cards,
+                     shape=f"{MESH_BATCH} rows = {n} shards x {bs} on {k_cards} card(s), {S} slots",
+                     time_note="window over 5 steps, events on every card, slowest card; "
+                               "plain: one host-clock run"))
+    log(f"K7 sharded step: bit-exact over {MESH_BATCH} rows on {k_cards} card(s); {ms:.3f} ms "
+        f"(plain {pms:.1f} ms, bound {bnd:.4f} ms by {by})")
+    return rows
+
+
 def cross_card_phase() -> None:
     """K1, K2 and K3 on every visible card, the last card first, against
     their plain versions on the CPU and, for K3, the golden model."""
@@ -1043,6 +1434,21 @@ def cross_card_phase() -> None:
             f"launches {_lib.launches} for {n_cards} cards")
 
 
+def _mesh_corpus() -> Corpus:
+    t0 = time.perf_counter()
+    corpus = Corpus(SEED + 7, n_vals=MESH_VALS, n_txs=MESH_TXS, byz=MESH_BYZ,
+                    byz_p=MESH_BYZ_P, prefix=b"mtx")
+    log(f"mesh corpus: {len(corpus.votes)} votes signed in {corpus.sign_s:.1f} s "
+        f"({time.perf_counter() - t0:.1f} s with setup); {sum(corpus.byzantine)} byzantine; "
+        f"{int(corpus.expect_commit.sum())}/{MESH_TXS} txs reach quorum on honest stake")
+    return corpus
+
+
+def _mesh_json(mp: dict) -> dict:
+    return {"mesh": {k: ({kk: vv for kk, vv in v.items() if kk != "step_s"} if isinstance(v, dict)
+                         else v) for k, v in mp.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1055,11 +1461,26 @@ def main() -> int:
     _lib.build_all(force=True)
     card["build_s"] = time.perf_counter() - t0
     log(f"build: {card['build_s']:.1f} s (nvcc -gencode arch=compute_90a,code=sm_90a, in parallel)")
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
     if sys.argv[1:] == ["--cross-card"]:
         cross_card_phase()
         log(json.dumps({"cards": torch.cuda.device_count()}))
-        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                                 "count": torch.cuda.device_count()}}))
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
+    if sys.argv[1:] == ["--mesh"]:
+        require(torch.cuda.device_count() >= MESH_SHARDS,
+                f"--mesh needs {MESH_SHARDS} cards, {torch.cuda.device_count()} visible")
+        mesh = make_mesh(MESH_SHARDS)  # distinct cards, as the engine builds it
+        mcorpus = _mesh_corpus()
+        mp, fb = mesh_phase(mcorpus, mesh, engine_builds_mesh=True)
+        rows = mesh_rows(card, mcorpus, mesh, fb, mp["launches"], mp["mesh"]["steps"])
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "chip_smoke_mesh.json"), "w") as f:
+            json.dump({"card": card, "kernels": rows, "mesh": mp}, f, indent=1)
+        log(json.dumps(_mesh_json(mp)))
+        log(json.dumps({"kernels": rows}))
+        print(json.dumps({"ok": True, "device": device}))
         return 0
     require(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     for name in _lib.LIBS:
@@ -1095,15 +1516,20 @@ def main() -> int:
     log(f"committee: K6 busy share of the step time (kernel-row ms x launches) "
         f"{cm['k6_busy_share_from_rows']}")
     rows += k6
+    # the mesh-sharded serving step: 4 shards over the visible cards in turn
+    mcorpus = _mesh_corpus()
+    mesh = round_robin_mesh(MESH_SHARDS)
+    mp, fb = mesh_phase(mcorpus, mesh, engine_builds_mesh=False)
+    rows += mesh_rows(card, mcorpus, mesh, fb, mp["launches"], mp["mesh"]["steps"])
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernels": rows, "slice": sl, "committee": cm}, f, indent=1)
+        json.dump({"card": card, "kernels": rows, "slice": sl, "committee": cm, "mesh": mp}, f, indent=1)
     log(json.dumps({"committee": {k: v for k, v in cm.items() if k not in (
         "step_s", "vote_heights_per_response", "k6_one_launch_window_ms_per_group",
         "k6_main_path_checked")}}))
+    log(json.dumps(_mesh_json(mp)))
     log(json.dumps({"kernels": rows}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
+    print(json.dumps({"ok": True, "device": device}))
     return 0
 
 

@@ -1,4 +1,5 @@
-"""txflow-tpu ported to PyTorch and CUDA on one NVIDIA H100.
+"""txflow-tpu ported to PyTorch and CUDA on NVIDIA H100s (one card, or
+several driven from one process).
 
 The same per-transaction commit fast path as ``txflow_tpu`` (signed
 TxVotes -> batched ed25519 verify + stake tally -> commit at 2/3 of

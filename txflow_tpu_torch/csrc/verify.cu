@@ -1,24 +1,29 @@
-// Batched ed25519 verification over device-resident epoch tables (K3),
-// plus two kernels that expose K1 and K2 alone for checking on the card.
+// Batched ed25519 verification: over device-resident epoch tables (K3)
+// and over per-vote gathered tables (K5), plus two kernels that expose K1
+// and K2 alone for checking on the card.
 //
-// Replaces: txflow_tpu/ops/ed25519_batch.py:verify_kernel_gather (and,
+// Replaces: txflow_tpu/ops/ed25519_batch.py:verify_kernel_gather (K3; and,
 // inside it, curve.double_scalar_mul_indexed + curve.ext_encode over the
-// field arithmetic of ops/fe.py).
+// field arithmetic of ops/fe.py) and ed25519_batch.py:verify_kernel (K5;
+// curve.double_scalar_mul + table_select over one -A table per vote).
 //
 // One thread checks one signature: P = [S]B + [h](-A) over 64 four-bit
 // windows, then accepts iff encode(P) equals the signature's R bytes
 // (compared as exact limbs of the raw low 255 bits, so a non-canonical R
 // is rejected like Go's byte comparison) and the sign bit matches, ANDed
-// with the host pre-checks (S < L, key on curve, first occurrence).
+// with the host pre-checks (S < L, key on curve, first occurrence). K3 and
+// K5 differ only in where a thread finds its 16-entry -A table: row
+// val_idx of the epoch tables, or its own row of the gathered tables.
 //
 // What bounds it: integer multiply-adds (about 362k per signature, see
 // ge25519.cuh and fe25519.cuh); the inputs are 162 bytes per vote plus
 // the epoch tables (160 bytes a row, V*16 rows, L1/L2-resident for any
-// realistic validator set). Design answer: all curve state in registers,
-// one thread per signature so there is no cross-thread traffic, and rows
-// whose host pre-checks failed (bucket padding, S >= L, off-curve keys,
-// in-batch repeats) return at once instead of computing a result that
-// the AND would discard.
+// realistic validator set) -- or, for K5, 2560 bytes of gathered table per
+// vote, still two orders of magnitude under the multiply-add time. Design
+// answer: all curve state in registers, one thread per signature so there
+// is no cross-thread traffic, and rows whose host pre-checks failed
+// (bucket padding, S >= L, off-curve keys, in-batch repeats) return at
+// once instead of computing a result that the AND would discard.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -31,15 +36,14 @@
 // txf_set_base_table (the host builds it, ops/curve.py:BASE_TABLE).
 __constant__ int32_t c_base_table[16 * TXF_ROW];
 
-// [s]B + [h](-A_v), encoded: the shared body of the verify and the
-// dsm_encode kernels.
+// [s]B + [h](-A), encoded, with vt the 16 x TXF_ROW window table of -A:
+// the shared body of the verify kernels and the dsm_encode kernel.
 __device__ void dsm_encode_row(int i, const uint8_t* __restrict__ s_nib,
-                               const uint8_t* __restrict__ h_nib, int v,
-                               const int32_t* __restrict__ tables, fe y,
+                               const uint8_t* __restrict__ h_nib,
+                               const int32_t* __restrict__ vt, fe y,
                                int32_t* parity) {
   ge_p3 acc;
   ge_identity(&acc);
-  const int32_t* vt = tables + (int64_t)v * 16 * TXF_ROW;
   const uint8_t* sn = s_nib + (int64_t)i * 64;
   const uint8_t* hn = h_nib + (int64_t)i * 64;
   ge_pniels n;
@@ -61,6 +65,15 @@ __device__ __forceinline__ int clamp_val(int32_t v, int n_vals) {
   return v < 0 ? 0 : (v >= n_vals ? n_vals - 1 : v);
 }
 
+// encode(P) against the signature's raw R: y limbs and the sign bit.
+__device__ __forceinline__ int32_t r_matches(int i, const fe y, int32_t parity,
+                                             const uint8_t* __restrict__ r_y,
+                                             const uint8_t* __restrict__ r_sign) {
+  fe r;
+  fe_from_bytes(r, r_y + (int64_t)i * 32);
+  return (fe_equal(y, r) && parity == (int32_t)r_sign[i]) ? 1 : 0;
+}
+
 __global__ void __launch_bounds__(128)
 txf_verify_kernel(const uint8_t* __restrict__ s_nib,
                   const uint8_t* __restrict__ h_nib,
@@ -76,12 +89,34 @@ txf_verify_kernel(const uint8_t* __restrict__ s_nib,
     out[i] = 0;
     return;
   }
-  fe y, r;
+  fe y;
   int32_t parity;
-  dsm_encode_row(i, s_nib, h_nib, clamp_val(val_idx[i], n_vals), tables, y,
+  dsm_encode_row(i, s_nib, h_nib,
+                 tables + (int64_t)clamp_val(val_idx[i], n_vals) * 16 * TXF_ROW,
+                 y, &parity);
+  out[i] = r_matches(i, y, parity, r_y, r_sign);
+}
+
+// K5: the same check with one gathered -A table per vote ([B][16][4][10]).
+__global__ void __launch_bounds__(128)
+txf_verify_tables_kernel(const uint8_t* __restrict__ s_nib,
+                         const uint8_t* __restrict__ h_nib,
+                         const int32_t* __restrict__ a_tables,
+                         const uint8_t* __restrict__ r_y,
+                         const uint8_t* __restrict__ r_sign,
+                         const uint8_t* __restrict__ pre_ok,
+                         int32_t* __restrict__ out, int B) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B) return;
+  if (!pre_ok[i]) {
+    out[i] = 0;
+    return;
+  }
+  fe y;
+  int32_t parity;
+  dsm_encode_row(i, s_nib, h_nib, a_tables + (int64_t)i * 16 * TXF_ROW, y,
                  &parity);
-  fe_from_bytes(r, r_y + (int64_t)i * 32);
-  out[i] = (fe_equal(y, r) && parity == (int32_t)r_sign[i]) ? 1 : 0;
+  out[i] = r_matches(i, y, parity, r_y, r_sign);
 }
 
 __global__ void __launch_bounds__(128)
@@ -95,8 +130,9 @@ txf_dsm_encode_kernel(const uint8_t* __restrict__ s_nib,
   if (i >= B) return;
   fe y;
   int32_t parity;
-  dsm_encode_row(i, s_nib, h_nib, clamp_val(val_idx[i], n_vals), tables, y,
-                 &parity);
+  dsm_encode_row(i, s_nib, h_nib,
+                 tables + (int64_t)clamp_val(val_idx[i], n_vals) * 16 * TXF_ROW,
+                 y, &parity);
 #pragma unroll
   for (int l = 0; l < 10; ++l) y_out[(int64_t)i * 10 + l] = y[l];
   parity_out[i] = parity;
@@ -155,6 +191,16 @@ int txf_verify(const uint8_t* s_nib, const uint8_t* h_nib,
   if (B <= 0) return 0;
   txf_verify_kernel<<<grid_for(B, 128), 128, 0, (cudaStream_t)stream>>>(
       s_nib, h_nib, val_idx, tables, n_vals, r_y, r_sign, pre_ok, out, B);
+  return (int)cudaGetLastError();
+}
+
+int txf_verify_tables(const uint8_t* s_nib, const uint8_t* h_nib,
+                      const int32_t* a_tables, const uint8_t* r_y,
+                      const uint8_t* r_sign, const uint8_t* pre_ok,
+                      int32_t* out, int B, void* stream) {
+  if (B <= 0) return 0;
+  txf_verify_tables_kernel<<<grid_for(B, 128), 128, 0, (cudaStream_t)stream>>>(
+      s_nib, h_nib, a_tables, r_y, r_sign, pre_ok, out, B);
   return (int)cudaGetLastError();
 }
 

@@ -46,6 +46,7 @@ from ..types.tx_vote import sign_bytes_many
 from ..types.validator import ValidatorSet
 from ..utils.cache import LRUCache
 from ..utils.config import EngineConfig
+from ..parallel.mesh import make_mesh
 from ..verifier import DeviceVoteVerifier, ScalarVoteVerifier
 from .execution import TxExecutor
 
@@ -97,9 +98,15 @@ class TxFlow:
         if verifier is not None:
             self.verifier = verifier
         elif self.config.use_device:
-            # no fallback: a device or build failure raises, and a set whose
-            # total power overflows the int32 tally raises too
-            self.verifier = DeviceVoteVerifier(val_set, device=self.config.device)
+            # no fallback: a device or build failure raises, a set whose
+            # total power overflows the int32 tally raises, and so does a
+            # mesh of more cards than are visible (the JAX engine falls
+            # back to one device there)
+            if int(self.config.mesh_devices or 0) > 1:
+                mesh = make_mesh(int(self.config.mesh_devices), device=self.config.device)
+                self.verifier = DeviceVoteVerifier(val_set, mesh=mesh)
+            else:
+                self.verifier = DeviceVoteVerifier(val_set, device=self.config.device)
         else:
             self.verifier = ScalarVoteVerifier(val_set)
         self._addr_to_idx = {v.address: i for i, v in enumerate(val_set)}
@@ -107,6 +114,10 @@ class TxFlow:
             self.config.max_batch,
             getattr(self.verifier, "max_batch", self.config.max_batch),
         )
+        # on a mesh, a full drain splits evenly over the shards: no pad rows
+        shards = self._verifier_shards()
+        if self._drain_cap >= shards:
+            self._drain_cap -= self._drain_cap % shards
         self.vote_sets: dict[str, TxVoteSet] = {}  # in-flight only
         self._committed = LRUCache(1 << 16)  # recently committed tx hashes
         # ingest-log cursor: each pool entry is visited by step() exactly
@@ -412,10 +423,15 @@ class TxFlow:
             base = self.verifier
             restaged = base.restage(val_set)
             # only a device verifier past its capacity declines; its
-            # successor is built before any engine state swaps (the height
-            # included), so a failure leaves the old epoch's height, map,
-            # set and verifier together
-            verifier = base if restaged else DeviceVoteVerifier(val_set, device=base.device)
+            # successor (on the same device or mesh) is built before any
+            # engine state swaps (the height included), so a failure
+            # leaves the old epoch's height, map, set and verifier together
+            if restaged:
+                verifier = base
+            elif base.mesh is not None:
+                verifier = DeviceVoteVerifier(val_set, mesh=base.mesh)
+            else:
+                verifier = DeviceVoteVerifier(val_set, device=base.device)
             self.height = height
             self.val_set = val_set
             self._addr_to_idx = {v.address: i for i, v in enumerate(val_set)}
@@ -440,6 +456,11 @@ class TxFlow:
             }
 
     # ---- queries ----
+
+    def _verifier_shards(self) -> int:
+        """Mesh shard count of the verifier; 1 for a single device or the
+        host verifier."""
+        return max(1, int(getattr(self.verifier, "_n_shards", 1)))
 
     def is_tx_committed(self, tx_hash: str) -> bool:
         with self._mtx:

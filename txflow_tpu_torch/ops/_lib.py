@@ -47,19 +47,26 @@ LIBS = {
         {
             "txf_set_base_table": [_P],
             "txf_verify": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P],
+            "txf_verify_tables": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
             "txf_dsm_encode": [_P, _P, _P, _P, _I, _P, _P, _I, _P],
             "txf_fe_ops": [_P, _P, _P, _I, _P],
         },
     ),
     "tally": (
         "tally.cu",
-        {"txf_tally": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P]},
+        {
+            "txf_tally": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P],
+            "txf_tally_partial": [_P, _P, _P, _P, _I, _P, _I, _I, _P],
+            "txf_reduce_quorum": [_P, _I, _P, _I, _P, _P, _I, _P],
+            "txf_add": [_P, _P, _P, _I, _P],
+        },
     ),
 }
 
 # kernel -> library
 KERNELS = {"fe_ops": "verify", "dsm_encode": "verify", "verify": "verify",
-           "tally": "tally"}
+           "verify_tables": "verify", "tally": "tally",
+           "tally_partial": "tally", "reduce_quorum": "tally", "ring_add": "tally"}
 
 launches = {k: 0 for k in KERNELS}
 
@@ -177,6 +184,14 @@ def launch(kernel: str, fn: str, t, n: int, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{fn} failed: CUDA error {rc}")
     launches[kernel] += 1
+
+
+def same_card(*tensors) -> None:
+    """Raise unless every tensor lies on one card: a kernel reads each
+    pointer on the card it runs on."""
+    cards = {t.device for t in tensors}
+    if len(cards) != 1:
+        raise ValueError(f"kernel inputs on more than one device: {sorted(map(str, cards))}")
 
 
 def check(t, dtype, shape, name: str) -> None:

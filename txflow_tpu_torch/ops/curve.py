@@ -73,6 +73,32 @@ def _entry(rows: torch.Tensor):
     return (rows[..., 0, :], rows[..., 1, :], rows[..., 2, :], rows[..., 3, :])
 
 
+def table_select(table, nibble):
+    """Window entries by per-item nibble: ``table`` is shared [16, 4, 10]
+    or per item [B, 16, 4, 10]; ``nibble`` int [B] in [0, 16). Returns a
+    PNiels tuple of int64 [B, 10] (an indexed load, where the TPU took a
+    one-hot contraction)."""
+    if table.dim() == 3:
+        return _entry(table[nibble])
+    return _entry(table[torch.arange(nibble.shape[0], device=nibble.device), nibble])
+
+
+def _windowed(s_nibbles, h_nibbles, base_table, select_a):
+    """64 windows of 4 doublings + [s_w]B + [h_w]A', with ``select_a(h_w)``
+    the A' entries of window nibbles h_w."""
+    s_nib = s_nibbles.to(torch.int64) & 15
+    h_nib = h_nibbles.to(torch.int64) & 15
+    acc = ext_identity(s_nib.shape[:-1], device=s_nib.device)
+    for w in range(NWINDOWS):
+        acc = ext_double(acc, compute_t=False)
+        acc = ext_double(acc, compute_t=False)
+        acc = ext_double(acc, compute_t=False)
+        acc = ext_double(acc, compute_t=True)
+        acc = pniels_add(acc, table_select(base_table, s_nib[..., w]))
+        acc = pniels_add(acc, select_a(h_nib[..., w]))
+    return acc
+
+
 def double_scalar_mul_indexed(s_nibbles, h_nibbles, base_table, tables, val_idx):
     """[s]B + [h]A' with A' looked up per item in the epoch tables.
 
@@ -82,17 +108,14 @@ def double_scalar_mul_indexed(s_nibbles, h_nibbles, base_table, tables, val_idx)
     n_vals = tables.shape[0]
     flat = tables.reshape(n_vals * TABLE_SIZE, 4, fe.NLIMB)
     base = val_idx.to(torch.int64).clamp(0, n_vals - 1) * TABLE_SIZE
-    s_nib = s_nibbles.to(torch.int64) & 15
-    h_nib = h_nibbles.to(torch.int64) & 15
-    acc = ext_identity(s_nib.shape[:-1], device=s_nib.device)
-    for w in range(NWINDOWS):
-        acc = ext_double(acc, compute_t=False)
-        acc = ext_double(acc, compute_t=False)
-        acc = ext_double(acc, compute_t=False)
-        acc = ext_double(acc, compute_t=True)
-        acc = pniels_add(acc, _entry(base_table[s_nib[..., w]]))
-        acc = pniels_add(acc, _entry(flat[base + h_nib[..., w]]))
-    return acc
+    return _windowed(s_nibbles, h_nibbles, base_table, lambda h: _entry(flat[base + h]))
+
+
+def double_scalar_mul(s_nibbles, h_nibbles, base_table, a_tables):
+    """[s]B + [h]A' with A' given by one window table per item (K5's
+    form): a_tables int32 [B, 16, 4, 10], gathered per vote. Identical
+    results to ``double_scalar_mul_indexed`` over the tables it gathered."""
+    return _windowed(s_nibbles, h_nibbles, base_table, lambda h: table_select(a_tables, h))
 
 
 def ext_encode(p):

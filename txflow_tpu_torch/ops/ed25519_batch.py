@@ -1,11 +1,13 @@
 """Batched ed25519 verification: host epoch tables and batch prep, the
-plain PyTorch version of the verify kernel, and its CUDA wrapper (K3).
+plain PyTorch versions of the verify kernels, and their CUDA wrappers:
+K3 over device-resident epoch tables (the compact path) and K5 over one
+gathered -A table per vote (``verify_kernel``, ``verify_batch``).
 
-Counterpart of ``txflow_tpu/ops/ed25519_batch.py`` (compact path). The
-host does the byte work (S < L, SHA-512 mod L, nibbles, pubkey
-decompression and one window table of -A per validator per epoch); the
-device computes P = [S]B + [h](-A) and compares encode(P) with R.
-Decisions are bit-identical to ``crypto.ed25519.verify_pure``.
+Counterpart of ``txflow_tpu/ops/ed25519_batch.py``. The host does the
+byte work (S < L, SHA-512 mod L, nibbles, pubkey decompression and one
+window table of -A per validator per epoch); the device computes
+P = [S]B + [h](-A) and compares encode(P) with R. Decisions are
+bit-identical to ``crypto.ed25519.verify_pure``.
 """
 
 from __future__ import annotations
@@ -101,6 +103,104 @@ def prepare_compact(
     )
 
 
+@dataclass
+class PreparedBatch:
+    """Host-prepared inputs of the gathered-table verify (K5) for B checks:
+    the compact batch's fields with the -A window table of each vote's
+    validator gathered per vote instead of its index."""
+
+    s_nibbles: np.ndarray  # [B, 64] uint8, MSB-first nibbles of S
+    h_nibbles: np.ndarray  # [B, 64] uint8, MSB-first nibbles of h mod L
+    a_tables: np.ndarray  # [B, 16, 4, 10] int32 window table of -A per vote
+    r_y: np.ndarray  # [B, 32] uint8 low 255 bits of sig[:32]
+    r_sign: np.ndarray  # [B] uint8 bit 255 of sig[:32]
+    pre_ok: np.ndarray  # [B] bool host pre-checks passed
+
+    @property
+    def size(self) -> int:
+        return self.s_nibbles.shape[0]
+
+
+def prepare_batch(
+    msgs: list[bytes], sigs: list[bytes], val_idx: np.ndarray, epoch: EpochTables
+) -> PreparedBatch:
+    """Host prep for K5: the compact prep, then each vote's table gathered
+    from the epoch (an index outside the set clips into it; its pre_ok is
+    False already)."""
+    c = prepare_compact(msgs, sigs, val_idx, epoch)
+    if len(epoch.pub_keys):
+        a_tables = epoch.tables[c.val_idx]
+    else:
+        a_tables = np.zeros((c.size, curve.TABLE_SIZE, 4, fe.NLIMB), np.int32)
+    return PreparedBatch(c.s_nibbles, c.h_nibbles, a_tables, c.r_y, c.r_sign, c.pre_ok)
+
+
+def _match_r(y, parity, r_y, r_sign):
+    """encode(P) == R on raw bytes: y limbs equal the low 255 bits exactly
+    (a non-canonical R never matches) and the sign bit agrees."""
+    return fe.fe_equal(y.to(torch.int64), fe.fe_from_bytes(r_y)) & (
+        parity == r_sign.to(torch.int32)
+    )
+
+
+def verify_kernel_plain(s_nibbles, h_nibbles, a_tables, r_y, r_sign, pre_ok):
+    """Plain version of the K5 kernel: bool [B] over per-vote tables
+    (int32 [B, 16, 4, 10]); only the rows whose host pre-checks passed are
+    computed, as in the kernel."""
+    pre_ok = pre_ok.to(torch.bool)
+    rows = pre_ok.nonzero().squeeze(-1)
+    out = torch.zeros_like(pre_ok)
+    if rows.numel() == 0:  # padding only: nothing to compute
+        return out
+    base_table = torch.from_numpy(curve.BASE_TABLE).to(a_tables.device)
+    y, parity = curve.ext_encode(
+        curve.double_scalar_mul(
+            s_nibbles[rows], h_nibbles[rows], base_table, a_tables[rows]
+        )
+    )
+    out[rows] = _match_r(y, parity.to(torch.int32), r_y[rows], r_sign[rows])
+    return out
+
+
+def verify_kernel(s_nibbles, h_nibbles, a_tables, r_y, r_sign, pre_ok) -> torch.Tensor:
+    """K5: bool [B] of Go-equivalent signature validity, each vote checked
+    against its own gathered -A table (int32 [B, 16, 4, 10]). The CUDA
+    kernel runs for CUDA tensors; CPU tensors take the plain version."""
+    if s_nibbles.device.type == "cpu":
+        return verify_kernel_plain(s_nibbles, h_nibbles, a_tables, r_y, r_sign, pre_ok)
+    n = s_nibbles.shape[0]
+    _lib.check(s_nibbles, torch.uint8, (n, curve.NWINDOWS), "s_nibbles")
+    _lib.check(h_nibbles, torch.uint8, (n, curve.NWINDOWS), "h_nibbles")
+    _lib.check(a_tables, torch.int32, (n, curve.TABLE_SIZE, 4, fe.NLIMB), "a_tables")
+    _lib.check(r_y, torch.uint8, (n, 32), "r_y")
+    _lib.check(r_sign, torch.uint8, (n,), "r_sign")
+    _lib.check(pre_ok, torch.bool, (n,), "pre_ok")
+    _lib.same_card(s_nibbles, h_nibbles, a_tables, r_y, r_sign, pre_ok)
+    out = torch.empty((n,), dtype=torch.int32, device=s_nibbles.device)
+    _lib.launch(
+        "verify_tables", "txf_verify_tables", out, n, s_nibbles.data_ptr(),
+        h_nibbles.data_ptr(), a_tables.data_ptr(), r_y.data_ptr(),
+        r_sign.data_ptr(), pre_ok.data_ptr(), out.data_ptr(), n,
+    )
+    return out.to(torch.bool)
+
+
+def verify_batch(batch: PreparedBatch, device=None) -> np.ndarray:
+    """Host API: prepared batch -> bool [B] validity by K5 on ``device``
+    (CUDA unless the caller asks for the CPU)."""
+    from ..verifier import resolve_device
+
+    dev = resolve_device(device)
+
+    def T(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return verify_kernel(
+        T(batch.s_nibbles), T(batch.h_nibbles), T(batch.a_tables),
+        T(batch.r_y), T(batch.r_sign), T(batch.pre_ok),
+    ).cpu().numpy()
+
+
 def verify_kernel_gather_plain(
     s_nibbles, h_nibbles, val_idx, tables, r_y, r_sign, pre_ok
 ) -> torch.Tensor:
@@ -108,14 +208,13 @@ def verify_kernel_gather_plain(
     computes only the rows whose host pre-checks passed."""
     pre_ok = pre_ok.to(torch.bool)
     rows = pre_ok.nonzero().squeeze(-1)
+    out = torch.zeros_like(pre_ok)
+    if rows.numel() == 0:  # padding only: nothing to compute
+        return out
     y, parity = curve.dsm_encode_plain(
         s_nibbles[rows], h_nibbles[rows], val_idx[rows], tables
     )
-    match = fe.fe_equal(y.to(torch.int64), fe.fe_from_bytes(r_y[rows])) & (
-        parity == r_sign[rows].to(torch.int32)
-    )
-    out = torch.zeros_like(pre_ok)
-    out[rows] = match
+    out[rows] = _match_r(y, parity, r_y[rows], r_sign[rows])
     return out
 
 
@@ -128,6 +227,7 @@ def _check_batch(s_nibbles, h_nibbles, val_idx, tables, r_y, r_sign, pre_ok):
     _lib.check(r_y, torch.uint8, (n, 32), "r_y")
     _lib.check(r_sign, torch.uint8, (n,), "r_sign")
     _lib.check(pre_ok, torch.bool, (n,), "pre_ok")
+    _lib.same_card(s_nibbles, h_nibbles, val_idx, tables, r_y, r_sign, pre_ok)
     if tables.shape[0] == 0:
         raise ValueError("tables: empty validator set")
 
@@ -138,6 +238,7 @@ def verify_into(out, s_nibbles, h_nibbles, val_idx, tables, r_y, r_sign, pre_ok)
     readback)."""
     _check_batch(s_nibbles, h_nibbles, val_idx, tables, r_y, r_sign, pre_ok)
     _lib.check(out, torch.int32, (s_nibbles.shape[0],), "out")
+    _lib.same_card(out, s_nibbles)
     n = s_nibbles.shape[0]
     _lib.launch(
         "verify", "txf_verify", out, n, s_nibbles.data_ptr(), h_nibbles.data_ptr(),
@@ -163,6 +264,6 @@ def verify_kernel_gather(
     return out.to(torch.bool)
 
 
-# integer multiply-adds the kernel spends on one signature that passed the
+# integer multiply-adds a verify kernel (K3 or K5) spends on one signature that passed the
 # host pre-checks (rows that failed them return at once)
 MADS_PER_SIGNATURE = curve.MULS_PER_DSM_ENCODE * fe.MADS_PER_MUL

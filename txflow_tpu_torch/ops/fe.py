@@ -91,23 +91,29 @@ def frozen_to_bytes(limbs) -> np.ndarray:
 # Plain PyTorch version (int64 tensors [..., 10]); mirrors csrc/fe25519.cuh
 
 
-def _carry(t: list, i: int, w: int) -> None:
-    c = (t[i] + (1 << (w - 1))) >> w
-    t[i + 1] = t[i + 1] + c
-    t[i] = t[i] - (c << w)
+def _carry(h: torch.Tensor, i: int, w: int, step: int = 1) -> None:
+    """Carry limb i into limb i + 1, in place; with ``step`` 4 the same
+    for limb i + 4 at once (two carries that touch disjoint limbs)."""
+    lo = h[..., i : i + step + 1 : step]
+    hi = h[..., i + 1 : i + step + 2 : step]
+    c = (lo + (1 << (w - 1))) >> w
+    hi += c
+    lo -= c << w
 
 
 def fe_reduce(t: torch.Tensor) -> torch.Tensor:
-    """ref10 carry chain over int64 column sums -> carried limbs."""
-    h = list(t.unbind(-1))
-    for i, w in ((0, 26), (4, 26), (1, 25), (5, 25), (2, 26), (6, 26),
-                 (3, 25), (7, 25), (4, 26), (8, 26)):
-        _carry(h, i, w)
-    c9 = (h[9] + (1 << 24)) >> 25
-    h[0] = h[0] + c9 * 19
-    h[9] = h[9] - (c9 << 25)
+    """ref10 carry chain over int64 column sums -> carried limbs. The
+    chain's carries 0 and 4, 1 and 5, 2 and 6, 3 and 7, 4 and 8 touch
+    disjoint limbs, so each pair runs as one operation: the same sums as
+    the kernel's one-at-a-time chain."""
+    h = t.clone()
+    for i, w in ((0, 26), (1, 25), (2, 26), (3, 25), (4, 26)):
+        _carry(h, i, w, step=4)
+    c9 = (h[..., 9] + (1 << 24)) >> 25
+    h[..., 0] += c9 * 19
+    h[..., 9] -= c9 << 25
     _carry(h, 0, 26)
-    return torch.stack(h, -1)
+    return h
 
 
 def fe_add(f, g):

@@ -33,3 +33,8 @@ class EngineConfig:
     # where the device verifier runs: "cuda" unless the caller asks for
     # "cpu" (the plain PyTorch kernels); without CUDA, "cuda" raises
     device: str = "cuda"
+    # vote-axis sharding (parallel/mesh.py): split each padded batch over
+    # the first N cards (N CPU entries with device="cpu"), one process
+    # driving them all. 0 or 1 = one device. Fewer visible cards than N
+    # raises: the engine never runs on fewer cards than asked for.
+    mesh_devices: int = 0

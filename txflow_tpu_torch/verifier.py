@@ -8,10 +8,11 @@ the same decision -- "is this signature valid, and does the tx now have
 
 - ``ScalarVoteVerifier`` -- the golden model: host ed25519 + int64 stake
   accumulation, used only when the caller asks for it.
-- ``DeviceVoteVerifier`` -- the batched step on one device: the CUDA
-  verify and tally kernels on a card, their plain PyTorch versions when
-  the caller passes ``device="cpu"``. A failure raises; nothing falls back
-  to the host verifier.
+- ``DeviceVoteVerifier`` -- the batched step on one device, or sharded
+  over a mesh of devices (``parallel/mesh.py``): the CUDA verify and
+  tally kernels on the cards, their plain PyTorch versions when the
+  caller passes ``device="cpu"`` or a mesh of CPU entries. A failure
+  raises; nothing falls back to the host verifier or to fewer devices.
 
 Both return bit-identical accept/reject masks and quorum decisions.
 """
@@ -25,6 +26,7 @@ import torch
 
 from .crypto import ed25519 as host_ed
 from .ops import ed25519_batch, tally
+from .parallel.mesh import Mesh, sharded_compact_step_packed, to_host
 from .types.validator import ValidatorSet
 
 # Batch-size buckets: padding to the next bucket keeps the set of batch
@@ -32,12 +34,16 @@ from .types.validator import ValidatorSet
 DEFAULT_BUCKETS = (64, 256, 1024, 4096, 16384, 65536)
 
 
-def bucket_size(n: int) -> int:
-    """Smallest bucket >= n; beyond the largest bucket, n itself."""
-    for b in DEFAULT_BUCKETS:
-        if b >= n:
-            return b
-    return n
+def bucket_size(n: int, buckets=DEFAULT_BUCKETS, multiple: int = 1) -> int:
+    """Smallest bucket >= n after rounding each bucket up to ``multiple``
+    (a mesh's shard count, so every padded batch splits evenly); beyond
+    the largest bucket, n rounded up to ``multiple``. Rounding before the
+    comparison keeps one shape per rung, as in the JAX package."""
+    for b in buckets:
+        bb = -(-b // multiple) * multiple
+        if bb >= n:
+            return bb
+    return -(-n // multiple) * multiple
 
 
 def resolve_device(device=None) -> torch.device:
@@ -86,13 +92,14 @@ class ReadyTicket(VerifyTicket):
 
 
 class _FusedDeviceTicket(VerifyTicket):
-    """Dispatched fused step: one synchronous readback of the packed
-    ``[valid | stake | maj23]`` vector at result()."""
+    """Dispatched fused step: one readback of each shard's packed
+    ``[valid (b/n) | stake | maj23]`` vector at result() (one shard on a
+    single device)."""
 
-    __slots__ = ("_packed", "_n", "_n_slots", "_b", "_b_slots", "_keep", "_done")
+    __slots__ = ("_parts", "_n", "_n_slots", "_b", "_b_slots", "_keep", "_done")
 
-    def __init__(self, packed, n, n_slots, b, b_slots, keep):
-        self._packed = packed  # device tensor, not yet read back
+    def __init__(self, parts, n, n_slots, b, b_slots, keep):
+        self._parts = parts  # per-shard device tensors, not yet read back
         self._n = n
         self._n_slots = n_slots
         self._b = b
@@ -103,13 +110,17 @@ class _FusedDeviceTicket(VerifyTicket):
     def result(self) -> TallyResult:
         if self._done is not None:
             return self._done
-        packed = self._packed.cpu().numpy()  # the one device->host copy
-        self._packed = None
-        b, s = self._b, self._b_slots
+        # the device->host copies; the host sees [b + 2 * b_slots * n]
+        rows = to_host(self._parts).numpy().reshape(len(self._parts), -1)
+        self._parts = None
+        bs = self._b // rows.shape[0]
+        s = self._b_slots
+        # valid from every shard; stake and maj23 from shard 0 (each
+        # shard holds the same global tally)
         self._done = TallyResult(
-            packed[: self._n].astype(bool),
-            packed[b : b + self._n_slots].astype(np.int64),
-            packed[b + s : b + s + self._n_slots].astype(bool),
+            rows[:, :bs].reshape(-1)[: self._n].astype(bool),
+            rows[0, bs : bs + self._n_slots].astype(np.int64),
+            rows[0, bs + s : bs + s + self._n_slots].astype(bool),
             ~self._keep,
         )
         return self._done
@@ -226,7 +237,8 @@ class _DeviceStage:
     """One epoch's device constants, bundled so a submit reads a single
     attribute and never mixes one epoch's tables with another's powers.
     ``pub_keys``/``val_set`` are the real set; the tables and powers are
-    padded to the verifier's validator capacity."""
+    padded to the verifier's validator capacity. On a mesh, the device
+    tables and powers are per-shard lists, one copy on each card."""
 
     __slots__ = ("val_set", "pub_keys", "epoch", "powers", "tables_dev", "powers_dev")
 
@@ -240,16 +252,25 @@ class _DeviceStage:
 
 
 class DeviceVoteVerifier:
-    """Batched verify + tally on one device.
+    """Batched verify + tally on one device, or sharded over ``mesh``.
 
     Per-epoch constants (the -A window tables and the voting powers) are
-    uploaded once per validator set, padded to ``capacity`` (the next
-    power of two >= the set size, at least 4), so ``restage()`` swaps them
-    for a new set with two host->device copies and nothing rebuilt.
+    uploaded once per validator set -- to every card of the mesh -- padded
+    to ``capacity`` (the next power of two >= the set size, at least 4),
+    so ``restage()`` swaps them for a new set with host->device copies and
+    nothing rebuilt. With a mesh of n shards every padded batch is a
+    multiple of n and splits evenly over the shards.
     """
 
-    def __init__(self, val_set: ValidatorSet, device=None):
-        self.device = resolve_device(device)
+    def __init__(self, val_set: ValidatorSet, device=None, mesh: Mesh | None = None):
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("pass a device or a mesh, not both")
+            resolve_device(mesh.devices[0])
+        self.mesh = mesh
+        self._n_shards = 1 if mesh is None else mesh.size
+        self.device = resolve_device(device) if mesh is None else mesh.devices[0]
+        self._step = None if mesh is None else sharded_compact_step_packed(mesh)
         # the engine must not drain batches beyond the largest bucket
         self.max_batch = max(DEFAULT_BUCKETS)
         self.capacity = _next_pow2(max(val_set.size(), 4))
@@ -285,11 +306,14 @@ class DeviceVoteVerifier:
         epoch = ed25519_batch.EpochTables(pub_keys + [b"\x00" * 32] * pad)
         powers = np.zeros(self.capacity, np.int32)
         powers[: len(pub_keys)] = val_set.powers_array().astype(np.int32)
-        return _DeviceStage(
-            val_set, pub_keys, epoch, powers,
-            epoch.device_tables(self.device),
-            torch.from_numpy(powers).to(self.device),
-        )
+        if self.mesh is None:
+            tables_dev = epoch.device_tables(self.device)
+            powers_dev = torch.from_numpy(powers).to(self.device)
+        else:
+            # every card gets its copy before the caller swaps the stage in
+            tables_dev = [epoch.device_tables(d) for d in self.mesh.devices]
+            powers_dev = self.mesh.replicate(torch.from_numpy(powers))
+        return _DeviceStage(val_set, pub_keys, epoch, powers, tables_dev, powers_dev)
 
     def restage(self, new_val_set: ValidatorSet) -> bool:
         """Swap the per-epoch device constants for a new validator set in
@@ -334,7 +358,7 @@ class DeviceVoteVerifier:
         tx_slot = np.asarray(tx_slot, dtype=np.int32)
         keep = first_occurrence_mask(tx_slot, val_idx)
         st = self._stage
-        b = bucket_size(n)
+        b = bucket_size(n, multiple=self._n_shards)
         b_slots = bucket_size(n_slots)
 
         batch = ed25519_batch.prepare_compact(msgs, sigs, val_idx, st.epoch)
@@ -348,10 +372,13 @@ class DeviceVoteVerifier:
             prior[:n_slots] = np.asarray(prior_stake, dtype=np.int32)
         q = st.val_set.quorum_power() if quorum is None else quorum
 
-        def dev(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
-        packed = tally.compact_step_packed(
+        if self.mesh is None:
+            def dev(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        else:
+            def dev(a):  # the sharded step copies each slice to its card
+                return torch.from_numpy(np.ascontiguousarray(a))
+        args = (
             dev(_pad(batch.s_nibbles, pad)),
             dev(_pad(batch.h_nibbles, pad)),
             dev(_pad(batch.val_idx, pad)),
@@ -364,7 +391,11 @@ class DeviceVoteVerifier:
             dev(prior),
             int(q),
         )
-        return _FusedDeviceTicket(packed, n, n_slots, b, b_slots, keep)
+        if self.mesh is None:
+            parts = [tally.compact_step_packed(*args)]
+        else:
+            parts = self._step(*args)
+        return _FusedDeviceTicket(parts, n, n_slots, b, b_slots, keep)
 
 
 def _pad(a: np.ndarray, pad: int) -> np.ndarray:
