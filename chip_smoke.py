@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py                # one card: build, kernels, slice, committee, mesh
+    python3 chip_smoke.py                # one card: build, kernels, slice, K8, int64, committee, mesh
     python3 chip_smoke.py --cross-card   # two or more cards: the kernels on each
     python3 chip_smoke.py --mesh         # four cards: K5/K7 and the mesh cell over them
 
@@ -60,6 +60,24 @@
    sharded step) are held bit-exact against their plain versions at those
    shapes and timed. Prints the phase's JSON line before the kernels'.
 
+6. The radix-2^13 field (K8) and the int64 tally, between phases 3 and 4
+   (the committee's part inside phase 4): K8 under every kernel of the
+   verify13 library -- fe13_ops on 4096 elements, dsm_encode13 on 256
+   pairs, verify13 (K3 over K8) over the whole K3 batch and
+   verify_tables13 (K5 over K8) on a sub-batch, bit-exact against their
+   plain versions and mask-equal to the radix-25 kernels -- with an A/B
+   line of K3 against verify13 at 16384 rows in turns, beside each
+   library's registers and spill bytes from ptxas; the slice again with
+   EngineConfig(fe_radix=13) (certificate bytes and app digest equal to
+   the radix-25 run's), and in the same launch count one radix-13 sharded
+   step over the round-robin mesh (equal to the radix-25 packed output)
+   and K5 over K8 through sharded_verify_and_tally; a second follower
+   re-verifying the committee log over K8 (K6 rows over K8 at rungs 8 and
+   16384); and the slice with every power times 2^25 (total past 2^30:
+   txf_tally64 on one card; on the same batch the engine's verifier and a
+   4-shard one, txf_tally_partial64 + txf_reduce_quorum64, equal to
+   ScalarVoteVerifier), the int64 kernels held bit-exact and timed.
+
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0), and
 without CUDA the script exits 1 before printing any result.
@@ -93,7 +111,7 @@ from txflow_tpu_torch.committee.certverify import _rung
 from txflow_tpu_torch.crypto import ed25519 as host_ed
 from txflow_tpu_torch.engine import TxExecutor, TxFlow
 from txflow_tpu_torch.epoch import EpochConfig
-from txflow_tpu_torch.ops import _lib, curve, ed25519_batch, fe, tally
+from txflow_tpu_torch.ops import _lib, curve, ed25519_batch, fe, fe13, tally
 from txflow_tpu_torch.parallel import (
     Mesh, make_mesh, sharded_compact_step_packed, sharded_ring_step, sharded_verify_and_tally,
     to_host,
@@ -106,7 +124,7 @@ from txflow_tpu_torch.sync import SyncConfig, SyncError, SyncManager, serve_rang
 from txflow_tpu_torch.types import MockPV, TxVote, Validator, ValidatorSet
 from txflow_tpu_torch.types.tx_vote import canonical_sign_bytes
 from txflow_tpu_torch.utils.config import EngineConfig, MempoolConfig
-from txflow_tpu_torch.verifier import DeviceVoteVerifier, first_occurrence_mask
+from txflow_tpu_torch.verifier import DeviceVoteVerifier, ScalarVoteVerifier, first_occurrence_mask
 
 CHAIN_ID = "txflow-smoke"
 HEIGHT = 1
@@ -308,7 +326,7 @@ def _sign_all(items: list[tuple[bytes, bytes]]) -> list[bytes]:
 # Phase 2: kernels against their plain versions
 
 
-def kernel_phase(card: dict, corpus: Corpus, dev) -> list[dict]:
+def kernel_phase(card: dict, corpus: Corpus, dev) -> tuple[list[dict], dict]:
     rows = []
     rng = np.random.default_rng(SEED + 1)
     P = fe.P_INT
@@ -345,7 +363,7 @@ def kernel_phase(card: dict, corpus: Corpus, dev) -> list[dict]:
 
     # the epoch: 16 validators + one off-curve key, padded to capacity 32
     pubs = [v.pub_key for v in corpus.val_set]
-    epoch = ed25519_batch.EpochTables(pubs + [BAD_PUB] + [bytes(32)] * 15)
+    epoch = ed25519_batch.EpochTables(pubs + [BAD_PUB] + [bytes(32)] * 15, fe_radix=25)
     tables = epoch.device_tables(dev)
     powers = np.zeros(32, np.int32)
     powers[:N_VALS] = corpus.powers
@@ -446,7 +464,7 @@ def kernel_phase(card: dict, corpus: Corpus, dev) -> list[dict]:
     ms = cuda_ms_window(lambda: ed25519_batch.verify_kernel_gather(*args), 10)
     pms = cuda_ms(lambda: ed25519_batch.verify_kernel_gather_plain(*args), 2)
     bnd, by = bound_ms(card, nbytes(*args[:3], *args[4:]) + nbytes(tables) + B * 4,
-                       n_ok * ed25519_batch.MADS_PER_SIGNATURE)
+                       n_ok * ed25519_batch.mads_per_signature(25))
     rows.append(dict(name="K3 ed25519 verify (txf_verify)", route="cuda",
                      source="txflow_tpu_torch/csrc/verify.cu",
                      replaces="txflow_tpu/ops/ed25519_batch.py:384",
@@ -495,23 +513,26 @@ def kernel_phase(card: dict, corpus: Corpus, dev) -> list[dict]:
                      one_launch_window_ms=one_ms, shape=f"{B} votes, {S} slots"))
     log(f"K4 tally: bit-exact ({int(maj_p.sum())} slots at quorum); {ms:.4f} ms "
         f"({one_ms:.4f} ms in a window around one launch; plain {pms:.3f} ms, index_add_ + compare {lib_ms:.4f} ms, bound {bnd:.6f} ms by {by})")
-    return rows
+    k3_batch = dict(args=args, n=n, n_ok=n_ok, mask=k3, keys=pubs + [BAD_PUB] + [bytes(32)] * 15,
+                    k3_ms=rows[2]["ms"], slot=slot_t, prior=prior_t, quorum=quorum)
+    return rows, k3_batch
 
 
 # ---------------------------------------------------------------------------
 # Phase 3: the slice
 
 
-def _node(corpus: Corpus, config: EngineConfig, verifier=None):
-    """One node's pools, stores and engine, the corpus' txs in the mempool
-    and its votes in the vote pool in arrival order."""
+def _node(corpus: Corpus, config: EngineConfig, verifier=None, val_set=None):
+    """One node's pools, stores and engine over ``val_set`` (default the
+    corpus' set), the corpus' txs in the mempool and its votes in the vote
+    pool in arrival order."""
     conns = AppConns(KVStoreApplication())
     n_txs, n_votes = len(corpus.txs), len(corpus.votes)
     mempool = Mempool(MempoolConfig(size=2 * n_txs, cache_size=4 * n_txs), conns.mempool)
     commitpool = Mempool(MempoolConfig(size=2 * n_txs, cache_size=4 * n_txs))
     votepool = TxVotePool(MempoolConfig(size=2 * n_votes, cache_size=2 * n_votes))
     store = TxStore(MemDB())
-    flow = TxFlow(CHAIN_ID, HEIGHT, corpus.val_set, votepool, mempool, commitpool,
+    flow = TxFlow(CHAIN_ID, HEIGHT, val_set or corpus.val_set, votepool, mempool, commitpool,
                   TxExecutor(conns.consensus, mempool), store, config=config, verifier=verifier)
     require(not any(mempool.check_tx_many(corpus.txs)), "mempool rejected a tx")
     require(not any(votepool.check_tx_many([corpus.votes[i] for i in corpus.order])),
@@ -542,9 +563,10 @@ def _drive(flow, dev) -> dict:
             "device_busy_share": sum(device_ms) / (sum(step_s) * 1e3)}
 
 
-def _outcome(corpus: Corpus, flow, store, app) -> dict:
+def _outcome(corpus: Corpus, flow, store, app, scale: int = 1) -> dict:
     """The committed set, certificates and in-flight stake against the
-    construction; returns the certificate rows and counts."""
+    construction (every power ``scale`` times the corpus'); returns the
+    certificate rows and counts."""
     hashes = [hashlib.sha256(tx).hexdigest().upper() for tx in corpus.txs]
     committed = np.array([flow.is_tx_committed(h) for h in hashes])
     require(bool((committed == corpus.expect_commit).all()),
@@ -553,7 +575,8 @@ def _outcome(corpus: Corpus, flow, store, app) -> dict:
     want_keys = {tx.split(b"=")[0] for tx, c in zip(corpus.txs, committed) if c}
     require(set(app.state) == want_keys and app.tx_count == len(want_keys), "app state")
     byz = {(v.tx_hash, v.validator_address): b for v, b in zip(corpus.votes, corpus.byzantine)}
-    power_of = {v.address: v.voting_power for v in corpus.val_set}
+    power_of = {v.address: v.voting_power for v in flow.val_set}
+    quorum = flow.val_set.quorum_power()
     rows, committed_votes = {}, 0
     for h, c in zip(hashes, committed):
         if not c:
@@ -562,63 +585,91 @@ def _outcome(corpus: Corpus, flow, store, app) -> dict:
         require(cert is not None, "missing certificate")
         require(not any(byz[(h, cs.validator_address)] for cs in cert.commits),
                 "a byzantine vote in a certificate")
-        require(sum(power_of[cs.validator_address] for cs in cert.commits) >= corpus.quorum,
+        require(sum(power_of[cs.validator_address] for cs in cert.commits) >= quorum,
                 "certificate below quorum")
         committed_votes += len(cert.commits)
         rows[h] = store.load_cert_row(h)
     n = corpus.n_vals
     for t in np.flatnonzero(~committed):
-        honest = sum(corpus.powers[v] for v in range(n) if not corpus.byzantine[t * n + v])
+        honest = scale * sum(corpus.powers[v] for v in range(n) if not corpus.byzantine[t * n + v])
         require(flow.vote_sets[hashes[t]].stake() == honest, "in-flight stake != honest stake")
     return {"committed_txs": int(committed.sum()), "committed_votes": committed_votes,
             "rows": rows, "digest": app.digest}
 
 
-def slice_phase(corpus: Corpus, dev) -> dict:
-    flow, store, app = _node(corpus, EngineConfig(max_batch=MAX_BATCH, device=str(dev)))
-    require(isinstance(flow.verifier, DeviceVoteVerifier), "engine is not on the device verifier")
+def slice_phase(corpus: Corpus, dev, fe_radix: int = 25, scale: int = 1, ref: dict | None = None,
+                label: str = "slice", extra=None) -> tuple[dict, dict]:
+    """One node's fast path over the corpus, verify over the ``fe_radix``
+    field, every power ``scale`` times the corpus' (a scale that takes the
+    total past 2^30 runs the int64 tally). Checks the outcome known by
+    construction; with ``ref`` (an earlier run's outcome) the certificate
+    bytes and the app digest must equal it, else a sample of certificates
+    goes through the golden model. ``extra(flow)`` runs between the same
+    reset and read of the launch counts (more of this field's path).
+    Returns (the phase's numbers, the outcome)."""
+    val_set = corpus.val_set if scale == 1 else ValidatorSet(
+        [Validator(v.address, v.pub_key, v.voting_power * scale) for v in corpus.val_set])
+    wide = val_set.total_voting_power() >= 2**30
+    vk = "verify13" if fe_radix == 13 else "verify"
+    tk = "tally64" if wide else "tally"
+    flow, store, app = _node(corpus, EngineConfig(max_batch=MAX_BATCH, device=str(dev),
+                                                  fe_radix=fe_radix), val_set=val_set)
+    require(isinstance(flow.verifier, DeviceVoteVerifier) and flow.verifier.fe_radix == fe_radix
+            and flow.verifier._stage.wide == wide, "engine is not on the device verifier asked for")
     host_calls, restore_host = _count_host_verifies()
     _lib.reset_launches()
     try:
         run = _drive(flow, dev)
+        engine_launches, engine_host = dict(_lib.launches), host_calls["n"]
+        more = extra(flow) if extra else {}
     finally:
         restore_host()
     launches = dict(_lib.launches)
-    log(f"slice: {run['steps']} steps, launches {launches}, host verifies {host_calls['n']}")
-    require(launches["verify"] > 0 and launches["tally"] > 0, "a kernel of the path never ran")
+    log(f"{label}: {run['steps']} steps, engine launches {engine_launches}, with the rest of the "
+        f"path {launches}, host verifies by the engine {engine_host}")
+    require(engine_launches[vk] > 0 and engine_launches[tk] > 0, "a kernel of the path never ran")
+    other = ("verify13" if vk == "verify" else "verify", "tally" if wide else "tally64")
+    require(all(launches[k] == 0 for k in other), f"a kernel of another field or width ran: {launches}")
     # one timed device step per verify + tally pair: the timing wrapper saw them all
-    require(len(run["device_ms_per_step"]) == launches["verify"] == launches["tally"],
-            f"{len(run['device_ms_per_step'])} timed device steps for launches {launches}")
-    require(host_calls["n"] == 0, "a host (scalar) verify ran")
-    # the outcome known by construction, and a sample of certificates
-    # against the golden model
-    res = _outcome(corpus, flow, store, app)
-    certs = [flow.load_commit(h) for h in res["rows"]]
-    pick = random.Random(SEED).sample(certs, min(64, len(certs)))
-    pub_of = {v.address: v.pub_key for v in corpus.val_set}
-    for cert in pick:
-        for cs in cert.commits:
-            require(host_ed.verify_pure(pub_of[cs.validator_address],
-                                        canonical_sign_bytes(CHAIN_ID, cs.height, cs.tx_hash,
-                                                             cs.timestamp_ns),
-                                        cs.signature), "certificate vote fails verify_pure")
+    require(len(run["device_ms_per_step"]) == engine_launches[vk] == engine_launches[tk],
+            f"{len(run['device_ms_per_step'])} timed device steps for launches {engine_launches}")
+    require(engine_host == 0, "a host (scalar) verify ran in the engine")
+    # the outcome known by construction, and the certificates against the
+    # reference run or, for the first run, a sample against the golden model
+    res = _outcome(corpus, flow, store, app, scale)
+    if ref is not None:
+        require(res["rows"] == ref["rows"], f"{label}: certificate bytes differ from the reference run")
+        require(res["digest"] == ref["digest"], f"{label}: app digest differs from the reference run")
+    else:
+        certs = [flow.load_commit(h) for h in res["rows"]]
+        pick = random.Random(SEED).sample(certs, min(64, len(certs)))
+        pub_of = {v.address: v.pub_key for v in corpus.val_set}
+        for cert in pick:
+            for cs in cert.commits:
+                require(host_ed.verify_pure(pub_of[cs.validator_address],
+                                            canonical_sign_bytes(CHAIN_ID, cs.height, cs.tx_hash,
+                                                                 cs.timestamp_ns),
+                                            cs.signature), "certificate vote fails verify_pure")
     n_votes = len(corpus.votes)
     out = {"votes": n_votes, "txs": len(corpus.txs), "validators": corpus.n_vals,
-           "quorum": corpus.quorum, **run,
+           "quorum": val_set.quorum_power(), "fe_radix": fe_radix, "int64_tally": wide,
+           "total_power": val_set.total_voting_power(), **run,
            "committed_txs": res["committed_txs"], "committed_votes": res["committed_votes"],
            "committed_votes_per_s": res["committed_votes"] / run["wall_s"],
-           "votes_per_s": n_votes / run["wall_s"],
-           "launches": launches, "host_verifies": host_calls["n"], "sign_s": corpus.sign_s}
-    log("slice: time by stage over the run (ms): " + ", ".join(
+           "votes_per_s": n_votes / run["wall_s"], "equal_to_reference_run": ref is not None,
+           "launches": launches, "engine_launches": engine_launches, "host_verifies": engine_host,
+           "sign_s": corpus.sign_s, **more}
+    log(f"{label}: time by stage over the run (ms): " + ", ".join(
         f"{k} {v:.1f}" for k, v in run["stage_ms_total"].items())
         + "; device time per step (CUDA events around the verify + tally launches) "
         + ", ".join(f"{d:.2f}" for d in run["device_ms_per_step"])
         + f" ms = {out['device_busy_share'] * 100:.2f}% of the step time")
-    log(f"slice: {out['committed_txs']}/{out['txs']} txs committed as constructed, "
-        f"{out['committed_votes']} certificate votes; {out['committed_votes_per_s']:.0f} committed "
+    log(f"{label}: {out['committed_txs']}/{out['txs']} txs committed as constructed"
+        + (", certificate bytes and app digest equal to the reference run" if ref else "")
+        + f", {out['committed_votes']} certificate votes; {out['committed_votes_per_s']:.0f} committed "
         f"votes/s, {out['votes_per_s']:.0f} votes/s, p50 step {out['p50_step_ms']:.1f} ms over "
         f"{run['steps']} steps")
-    return out
+    return out, res
 
 
 def _count_host_verifies() -> tuple[dict, object]:
@@ -766,8 +817,8 @@ def _k6_timer(dev):
     """Wrap ed25519_batch.verify_kernel_gather (BatchCertVerifier calls it
     through the module) to record each call's rung, a pair of CUDA events
     around that one launch (so the window holds the launch path too), its
-    inputs and its output, under a label the caller sets. Returns
-    (records, label, restore)."""
+    inputs (the field among them) and its output, under a label the caller
+    sets. Returns (records, label, restore)."""
     records: list = []
     label = {"phase": ""}
     fn = ed25519_batch.verify_kernel_gather
@@ -777,7 +828,7 @@ def _k6_timer(dev):
         e0.record()
         out = fn(*a, **k)
         e1.record()
-        records.append((label["phase"], a[0].shape[0], e0, e1, a, out))
+        records.append((label["phase"], a[0].shape[0], e0, e1, (a, k), out))
         return out
 
     ed25519_batch.verify_kernel_gather = timed
@@ -788,19 +839,21 @@ def _k6_timer(dev):
     return records, label, restore
 
 
-def k6_rows(card: dict, com: "CommitteeCorpus", dev) -> list[dict]:
+def k6_rows(card: dict, com: "CommitteeCorpus", dev, fe_radix: int = 25,
+            rungs=K6_RUNGS) -> list[dict]:
     """K6 (txf_verify launched alone over one committee's unpadded tables,
-    V = COM_SIZE) at each rung of K6_RUNGS, on height-1 votes of the corpus
-    (their byzantine share included): bit-exact against the plain version,
-    against the golden model on a sample, and timed over many launches."""
+    V = COM_SIZE; over K8 with ``fe_radix`` 13, library verify13) at each
+    rung, on height-1 votes of the corpus (their byzantine share
+    included): bit-exact against the plain version, against the golden
+    model on a sample, and timed over many launches."""
     c1 = com.committees[1]
-    epoch = ed25519_batch.EpochTables([v.pub_key for v in c1])
+    epoch = ed25519_batch.EpochTables([v.pub_key for v in c1], fe_radix=fe_radix)
     tables = epoch.device_tables(dev)
     require(tables.shape[0] == COM_SIZE, "K6 tables are padded")
     idx = {v.address: i for i, v in enumerate(c1)}
     pubs = [v.pub_key for v in c1]
     rows = []
-    for rung in K6_RUNGS:
+    for rung in rungs:
         pick = com.orders[1][:rung]
         votes = [com.votes[i] for i in pick]
         msgs = [canonical_sign_bytes(COM_CHAIN, v.height, v.tx_hash, v.timestamp_ns) for v in votes]
@@ -814,8 +867,8 @@ def k6_rows(card: dict, com: "CommitteeCorpus", dev) -> list[dict]:
 
         args = (T(batch.s_nibbles), T(batch.h_nibbles), T(batch.val_idx), tables,
                 T(batch.r_y), T(batch.r_sign), T(batch.pre_ok))
-        k6 = ed25519_batch.verify_kernel_gather(*args)
-        p6 = ed25519_batch.verify_kernel_gather_plain(*args)
+        k6 = ed25519_batch.verify_kernel_gather(*args, fe_radix=fe_radix)
+        p6 = ed25519_batch.verify_kernel_gather_plain(*args, fe_radix=fe_radix)
         torch.cuda.synchronize()
         require(bool((k6 == p6).all()), f"K6 kernel != plain at rung {rung}")
         k6h = k6.cpu().numpy()
@@ -825,17 +878,22 @@ def k6_rows(card: dict, com: "CommitteeCorpus", dev) -> list[dict]:
             require(bool(k6h[j]) == host_ed.verify_pure(pubs[vix[j]], msgs[j], sigs[j]),
                     f"K6 row {j} at rung {rung} != verify_pure")
         n_ok = int(batch.pre_ok.sum())
-        ms = cuda_ms_window(lambda: ed25519_batch.verify_kernel_gather(*args),
+        ms = cuda_ms_window(lambda: ed25519_batch.verify_kernel_gather(*args, fe_radix=fe_radix),
                             max(10, min(200, 65536 // rung)))
-        pms = cuda_ms(lambda: ed25519_batch.verify_kernel_gather_plain(*args), 2)
-        bnd, by = bound_ms(card, nbytes(*args) + rung * 4, n_ok * ed25519_batch.MADS_PER_SIGNATURE)
-        rows.append(dict(name=f"K6 certificate verify (txf_verify alone), rung {rung}", route="cuda",
-                         source="txflow_tpu_torch/csrc/verify.cu",
+        pms = cuda_ms(lambda: ed25519_batch.verify_kernel_gather_plain(*args, fe_radix=fe_radix), 2)
+        bnd, by = bound_ms(card, nbytes(*args) + rung * 4,
+                           n_ok * ed25519_batch.mads_per_signature(fe_radix))
+        name = (f"K6 certificate verify (txf_verify alone), rung {rung}" if fe_radix == 25 else
+                f"K6 over K8: certificate verify (txf_verify of verify13 alone), rung {rung}")
+        rows.append(dict(name=name, route="cuda", fe_radix=fe_radix,
+                         source="txflow_tpu_torch/csrc/verify.cu" + (
+                             " (-DTXF_FE_RADIX=13), txflow_tpu_torch/csrc/fe25519_13.cuh"
+                             if fe_radix == 13 else ""),
                          replaces="txflow_tpu/committee/certverify.py:43",
                          max_abs_err=int((k6.int() - p6.int()).abs().max()), ms=ms, plain_ms=pms,
                          bound_ms=bnd, bound_by=by, library_ms=None, rung=rung,
                          shape=f"{rung} rows, {n_ok} past the host pre-checks, V={COM_SIZE}"))
-        log(f"K6 rung {rung}: bit-exact ({int(k6h.sum())} valid of {rung}); {ms:.4f} ms "
+        log(f"K6{' radix 13' if fe_radix == 13 else ''} rung {rung}: bit-exact ({int(k6h.sum())} valid of {rung}); {ms:.4f} ms "
             f"(plain {pms:.1f} ms, bound {bnd:.5f} ms by {by})")
     return rows
 
@@ -859,10 +917,11 @@ def committee_phase(com: "CommitteeCorpus", dev) -> dict:
         commitpool = Mempool(MempoolConfig(size=4 * COM_TXS, cache_size=8 * COM_TXS))
         votepool = TxVotePool(MempoolConfig(size=2 * n_votes, cache_size=2 * n_votes))
         store = TxStore(MemDB())
-        verifier = BatchCertVerifier(vals, device=dev)
+        verifier = BatchCertVerifier(vals, device=dev, fe_radix=25)
         flow = TxFlow(COM_CHAIN, height, vals, votepool, mempool, commitpool,
                       TxExecutor(conns.consensus, mempool), store,
-                      config=EngineConfig(max_batch=MAX_BATCH, device=str(dev)), verifier=verifier)
+                      config=EngineConfig(max_batch=MAX_BATCH, device=str(dev), fe_radix=25),
+                      verifier=verifier)
         state = StateStore(MemDB())
         for h in (0, 1):  # the full set on record, as the block history holds it
             state.save_validators(h, full)
@@ -873,9 +932,15 @@ def committee_phase(com: "CommitteeCorpus", dev) -> dict:
     require(not any(votepool.check_tx_many([com.votes[i] for i in com.orders[0]])),
             "vote pool rejected a vote")
     f_flow, _fm, _fv, f_store, f_state, f_app = node(c1, 1)
+    # a second follower re-verifies the same log over the radix-2^13 field
+    # (K6 over K8, library verify13)
+    g_flow, _gm, _gv, g_store, g_state, g_app = node(c1, 1)
+    mgr13 = SyncManager(COM_CHAIN, g_store, g_flow, state_store=g_state,
+                        config=SyncConfig(max_range=256, max_resp_bytes=512 * 1024),
+                        committee=CommitteeSchedule(COM_CHAIN, com.cfg), device=dev, fe_radix=13)
     mgr = SyncManager(COM_CHAIN, f_store, f_flow, state_store=f_state,
                       config=SyncConfig(max_range=256, max_resp_bytes=512 * 1024),
-                      committee=CommitteeSchedule(COM_CHAIN, com.cfg), device=dev)
+                      committee=CommitteeSchedule(COM_CHAIN, com.cfg), device=dev, fe_radix=25)
 
     records, label, restore = _k6_timer(dev)
     restage_s = [0.0]
@@ -966,14 +1031,25 @@ def committee_phase(com: "CommitteeCorpus", dev) -> dict:
             n_entries += served
             start += served
         sync_s = time.perf_counter() - t0
+        label["phase"] = "sync13"
+        t0 = time.perf_counter()
+        start, k = 0, 0
+        while start < store.seq_count():
+            body = serve_range(store, cfg, start, cfg.max_range, s_state.load_validators)
+            got, served, applied = mgr13.apply_range_resp(
+                "server", wire.encode_range_resp(k, start, *body))
+            require(got == start and served == applied > 0, "a radix-13 response applied short")
+            start += served
+            k += 1
+        sync13_s = time.perf_counter() - t0
     finally:
         restore_host()
         tally.compact_step_packed = tally_step
         restore()
     launches = dict(_lib.launches)
     torch.cuda.synchronize()
-    by_phase: dict[str, list] = {"step": [], "tampered": [], "sync": []}
-    rungs: dict[str, dict] = {"step": {}, "tampered": {}, "sync": {}}
+    by_phase: dict[str, list] = {"step": [], "tampered": [], "sync": [], "sync13": []}
+    rungs: dict[str, dict] = {"step": {}, "tampered": {}, "sync": {}, "sync13": {}}
     for ph, rung, e0, e1, _a, _o in records:
         by_phase[ph].append(e0.elapsed_time(e1))
         rungs[ph][rung] = rungs[ph].get(rung, 0) + 1
@@ -982,25 +1058,29 @@ def committee_phase(com: "CommitteeCorpus", dev) -> dict:
     # rung 16384 over each committee's V = 32 tables, the sync groups'
     # rungs -- rerun through the plain version on the recorded inputs
     checked, seen = [], set()
-    for ph, rung, _e0, _e1, args, out in records:
+    for ph, rung, _e0, _e1, (args, kw), out in records:
         key = (ph, rung, args[3].data_ptr())
         if key in seen:
             continue
         seen.add(key)
-        plain = ed25519_batch.verify_kernel_gather_plain(*args)
+        plain = ed25519_batch.verify_kernel_gather_plain(*args, **kw)
         require(bool((out == plain).all()), f"K6 != plain on the {ph} launch at rung {rung}")
-        checked.append({"phase": ph, "rung": rung, "V": args[3].shape[0],
+        require(kw.get("fe_radix") == (13 if ph == "sync13" else 25), f"K6 {ph} launch on the wrong field")
+        checked.append({"phase": ph, "rung": rung, "V": args[3].shape[0], "fe_radix": kw["fe_radix"],
                         "valid": int(out.sum()), "max_abs_err": int((out.int() - plain.int()).abs().max())})
     require({(c["phase"], c["rung"]) for c in checked}
             == {(ph, r) for ph in rungs for r in rungs[ph]}, "a main-path K6 shape went unchecked")
     log(f"committee: K6 bit-exact with its plain version on {len(checked)} main-path launches "
         f"(each phase, rung and committee's tables): {checked}")
-    f_verifiers = list(mgr._verifiers.values()) + [f_flow.verifier]
+    f_verifiers = (list(mgr._verifiers.values()) + [f_flow.verifier]
+                   + list(mgr13._verifiers.values()) + [g_flow.verifier])
     batch_calls = flow.verifier.batch_calls + sum(v.batch_calls for v in f_verifiers)
     scalar_calls = flow.verifier.scalar_calls + sum(v.scalar_calls for v in f_verifiers)
     log(f"committee: {len(step_s)} steps, {responses} responses, launches {launches}, "
         f"K6 calls by phase and rung {rungs}, host verifies {host_calls['n']}")
-    require(launches["verify"] == batch_calls == len(records) > 0, "K6 launches != batch calls")
+    require(launches["verify"] + launches["verify13"] == batch_calls == len(records) > 0,
+            "K6 launches != batch calls")
+    require(launches["verify13"] == len(by_phase["sync13"]) > 0, "K6 over K8 launches != radix-13 groups")
     require(launches["tally"] == launches["fe_ops"] == launches["dsm_encode"] == 0, "other kernels ran")
     require(scalar_calls == 0 and host_calls["n"] == 0, "a host (scalar) verify ran")
     require(len(by_phase["step"]) == len(step_s), "one K6 launch per step")
@@ -1044,6 +1124,10 @@ def committee_phase(com: "CommitteeCorpus", dev) -> dict:
             "a follower certificate row differs from the server's")
     require(f_app.state == app.state and f_app.digest == app.digest, "follower app state != server's")
     require(n_entries == len(order), "entries served != commits")
+    require(g_store.committed_hashes_in_order() == order
+            and all(g_store.load_cert_row(h) == store.load_cert_row(h) for h in order)
+            and g_app.state == app.state and g_app.digest == app.digest,
+            "the radix-13 follower != the server")
 
     p50 = statistics.median(step_s)
     sync_verify_ms = sum(by_phase["sync"])
@@ -1065,6 +1149,8 @@ def committee_phase(com: "CommitteeCorpus", dev) -> dict:
            "sync_k6_one_launch_window_ms_total": sync_verify_ms,
            "k6_one_launch_window_ms_per_group": by_phase["sync"], "sync_apply_s": apply_s[0],
            "sync_host_verify_s": sync_s - apply_s[0] - sync_verify_ms / 1e3,
+           "sync13_s": sync13_s, "k6_13_launches": launches["verify13"],
+           "sync13_k6_one_launch_window_ms_total": sum(by_phase["sync13"]),
            "host_verifies": host_calls["n"], "sign_s": com.sign_s}
     log(f"committee: {out['committed_txs']}/{len(com.txs)} txs committed as constructed, "
         f"{committed_votes} certificate votes; {out['committed_votes_per_s']:.0f} committed votes/s, "
@@ -1076,6 +1162,9 @@ def committee_phase(com: "CommitteeCorpus", dev) -> dict:
     log(f"committee: follower applied {n_entries} certificates from {responses} responses "
         f"({len(by_phase['sync'])} K6 launches) in {sync_s:.2f} s: K6 one-launch windows {sync_verify_ms:.1f} ms, "
         f"apply {apply_s[0]:.2f} s; tampered responses refused: {tampered}")
+    log(f"committee: the radix-13 follower re-verified the same log ({len(by_phase['sync13'])} K6 "
+        f"launches over K8, one-launch windows {sum(by_phase['sync13']):.1f} ms) in {sync13_s:.2f} s, "
+        f"ending equal to the server")
     return out
 
 
@@ -1091,24 +1180,31 @@ def round_robin_mesh(n: int) -> Mesh:
     return Mesh(tuple(torch.device("cuda", i % cards) for i in range(n)))
 
 
+def _first_batch(corpus: Corpus, n: int, epoch):
+    """The first ``n`` votes in arrival order as a compact batch over
+    ``epoch``, with their slots (the engine's first drain)."""
+    order = corpus.order[:n]
+    votes = [corpus.votes[i] for i in order]
+    msgs = [canonical_sign_bytes(CHAIN_ID, v.height, v.tx_hash, v.timestamp_ns) for v in votes]
+    sigs = [v.signature for v in votes]
+    vix = np.array([corpus.val_set.index_of(v.validator_address) for v in votes])
+    slot_of: dict[str, int] = {}
+    slots = np.array([slot_of.setdefault(v.tx_hash, len(slot_of)) for v in votes], np.int32)
+    return msgs, sigs, vix, slots, ed25519_batch.prepare_compact(msgs, sigs, vix, epoch)
+
+
 class FirstBatch:
     """The first MESH_BATCH votes in arrival order (the first sharded
     step's drain), on the host: K3's compact prep, K5's per-vote tables,
     slots, each vote's power, and the construction's verdicts."""
 
     def __init__(self, corpus: Corpus, n: int):
-        self.epoch = epoch = ed25519_batch.EpochTables([v.pub_key for v in corpus.val_set])
-        order = corpus.order[:n]
-        votes = [corpus.votes[i] for i in order]
-        self.msgs = [canonical_sign_bytes(CHAIN_ID, v.height, v.tx_hash, v.timestamp_ns) for v in votes]
-        self.sigs = [v.signature for v in votes]
-        self.vix = np.array([corpus.val_set.index_of(v.validator_address) for v in votes])
-        slot_of: dict[str, int] = {}
-        self.slots = np.array([slot_of.setdefault(v.tx_hash, len(slot_of)) for v in votes], np.int32)
-        self.n_slots = len(slot_of)
-        self.byz = np.array([corpus.byzantine[i] for i in order])
+        self.epoch = epoch = ed25519_batch.EpochTables([v.pub_key for v in corpus.val_set],
+                                                       fe_radix=25)
+        self.msgs, self.sigs, self.vix, self.slots, self.compact = _first_batch(corpus, n, epoch)
+        self.n_slots = int(self.slots.max()) + 1
+        self.byz = np.array([corpus.byzantine[i] for i in corpus.order[:n]])
         self.power = np.asarray(corpus.powers, np.int32)[self.vix]
-        self.compact = ed25519_batch.prepare_compact(self.msgs, self.sigs, self.vix, epoch)
         self.tables = ed25519_batch.prepare_batch(self.msgs, self.sigs, self.vix, epoch)
         # what a verify and a tally of these votes must give
         self.want_valid = ~self.byz
@@ -1140,8 +1236,10 @@ def mesh_phase(corpus: Corpus, mesh: Mesh, engine_builds_mesh: bool) -> tuple[di
     max_batch MESH_BATCH: certificate bytes and app digest must equal the
     mesh run's."""
     dev0 = mesh.devices[0]
-    cfg = EngineConfig(max_batch=MESH_BATCH, max_slots=MESH_SLOTS, mesh_devices=MESH_SHARDS)
-    verifier = None if engine_builds_mesh else DeviceVoteVerifier(corpus.val_set, mesh=mesh)
+    cfg = EngineConfig(max_batch=MESH_BATCH, max_slots=MESH_SLOTS, mesh_devices=MESH_SHARDS,
+                       fe_radix=25)
+    verifier = (None if engine_builds_mesh
+                else DeviceVoteVerifier(corpus.val_set, mesh=mesh, fe_radix=25))
     flow, store, app = _node(corpus, cfg, verifier)
     require(flow.verifier.mesh is not None and flow.verifier.mesh.size == MESH_SHARDS,
             "engine is not on the mesh")
@@ -1159,7 +1257,7 @@ def mesh_phase(corpus: Corpus, mesh: Mesh, engine_builds_mesh: bool) -> tuple[di
         engine_launches = dict(_lib.launches)
         # the K5 entry points and the ring step, on the first step's votes
         prior0 = torch.zeros(MESH_SLOTS, dtype=torch.int32)
-        svt = sharded_verify_and_tally(mesh)(
+        svt = sharded_verify_and_tally(mesh, fe_radix=25)(
             fb.table_args(), torch.from_numpy(fb.slots), torch.from_numpy(fb.power), prior0, quorum)
         vb = ed25519_batch.verify_batch(
             ed25519_batch.PreparedBatch(*(x[:MESH_BATCH // MESH_SHARDS] for x in (
@@ -1167,7 +1265,8 @@ def mesh_phase(corpus: Corpus, mesh: Mesh, engine_builds_mesh: bool) -> tuple[di
                 fb.tables.r_sign, fb.tables.pre_ok))), device=dev0)
         tables_r = mesh.replicate(epoch.device_tables(dev0))
         powers_r = mesh.replicate(torch.tensor(corpus.powers, dtype=torch.int32))
-        ring = sharded_ring_step(mesh)(*fb.compact_args(), tables_r, powers_r, prior0, quorum)
+        ring = sharded_ring_step(mesh, fe_radix=25)(*fb.compact_args(), tables_r, powers_r, prior0,
+                                                    quorum)
         for d in dict.fromkeys(mesh.devices):
             torch.cuda.synchronize(d)
     finally:
@@ -1205,7 +1304,7 @@ def mesh_phase(corpus: Corpus, mesh: Mesh, engine_builds_mesh: bool) -> tuple[di
 
     # the same votes through the one-card engine
     flow1, store1, app1 = _node(corpus, EngineConfig(
-        max_batch=MESH_BATCH, max_slots=MESH_SLOTS, device=str(dev0)))
+        max_batch=MESH_BATCH, max_slots=MESH_SLOTS, device=str(dev0), fe_radix=25))
     require(flow1.verifier.mesh is None, "one-card engine on a mesh")
     _lib.reset_launches()
     run1 = _drive(flow1, dev0)
@@ -1259,7 +1358,7 @@ def mesh_rows(card: dict, corpus: Corpus, mesh: Mesh, fb: FirstBatch, launches: 
     n_ok = int(fb.tables.pre_ok[:bs].sum())
     ms = cuda_ms_window(lambda: ed25519_batch.verify_kernel(*k5_args), 10)
     pms = cuda_ms(lambda: ed25519_batch.verify_kernel_plain(*k5_args), 2)
-    bnd, by = bound_ms(card, nbytes(*k5_args) + bs * 4, n_ok * ed25519_batch.MADS_PER_SIGNATURE)
+    bnd, by = bound_ms(card, nbytes(*k5_args) + bs * 4, n_ok * ed25519_batch.mads_per_signature(25))
     rows.append(dict(name="K5 ed25519 verify over per-vote tables (txf_verify_tables)", route="cuda",
                      source="txflow_tpu_torch/csrc/verify.cu",
                      replaces="txflow_tpu/ops/ed25519_batch.py:146", launches=launches["verify_tables"],
@@ -1357,7 +1456,7 @@ def mesh_rows(card: dict, corpus: Corpus, mesh: Mesh, fb: FirstBatch, launches: 
     args = fb.compact_args()
     shards = [mesh.shard(x) for x in args]
     consts = [mesh.replicate(epoch.device_tables(dev0)), mesh.replicate(powers), mesh.replicate(prior)]
-    step = sharded_compact_step_packed(mesh)
+    step = sharded_compact_step_packed(mesh, fe_radix=25)
     got = to_host(step(*shards, *consts, quorum))
     full = on0(args)
     pv = ed25519_batch.verify_kernel_gather_plain(*full[:3], consts[0][0], *full[3:6])
@@ -1376,7 +1475,7 @@ def mesh_rows(card: dict, corpus: Corpus, mesh: Mesh, fb: FirstBatch, launches: 
     scaled = dict(card, hbm_bytes_per_s=card["hbm_bytes_per_s"] * k_cards,
                   imad_per_s=card["imad_per_s"] * k_cards)
     bnd, by = bound_ms(scaled, nbytes(*args) + nbytes(consts[0][0], powers, prior)
-                       + n * (bs + 2 * S) * 4, n_ok * ed25519_batch.MADS_PER_SIGNATURE)
+                       + n * (bs + 2 * S) * 4, n_ok * ed25519_batch.mads_per_signature(25))
     rows.append(dict(name="K7 sharded fused step (per shard txf_verify + txf_tally_partial, "
                           "peer copies, txf_reduce_quorum)", route="cuda",
                      source="txflow_tpu_torch/parallel/mesh.py", replaces="txflow_tpu/parallel/mesh.py:114",
@@ -1390,6 +1489,361 @@ def mesh_rows(card: dict, corpus: Corpus, mesh: Mesh, fb: FirstBatch, launches: 
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the radix-2^13 field (K8) through verify, committee and mesh, and
+# the int64 stake tally of sets of total power >= 2^30
+
+
+def ptxas_info() -> dict:
+    """Registers, stack and spill bytes of every kernel of each library,
+    from the build's ``-Xptxas -v`` output."""
+    import re
+
+    def kernel_of(fn):  # the kernel's name, and its accumulator type for a template
+        k = re.search(r"(txf_\w+?_kernel)(I[il]E)?", fn or "")
+        return k and k.group(1) + {"IiE": "<int32>", "IlE": "<int64>"}.get(k.group(2), "")
+
+    info = {}
+    for name in _lib.LIBS:
+        kernels, fn, spills = {}, None, [0, 0]
+        for ln in (_lib.BUILD / f"lib{name}.build.txt").read_text().splitlines():
+            m = re.search(r"Function properties for (\S+)", ln)
+            if m:
+                fn = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m and fn:
+                spills[0] += int(m.group(2))
+                spills[1] += int(m.group(3))
+                if kernel_of(fn):
+                    kernels.setdefault(kernel_of(fn), {})["stack_bytes"] = int(m.group(1))
+                continue
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and kernel_of(fn):
+                kernels.setdefault(kernel_of(fn), {})["registers"] = int(m.group(1))
+        info[name] = {"kernels": kernels, "spill_store_bytes": spills[0], "spill_load_bytes": spills[1]}
+    return info
+
+
+def radix13_mesh_reference(corpus: Corpus, mesh: Mesh) -> dict:
+    """The radix-2^25.5 sharded step over the round-robin mesh on the
+    first MAX_BATCH votes (nonzero prior): the packed output the radix-13
+    step must equal. Runs before the radix-13 path's launch window."""
+    pubs = [v.pub_key for v in corpus.val_set]
+    epochs = {r: ed25519_batch.EpochTables(pubs, fe_radix=r) for r in (25, 13)}
+    msgs, sigs, vix, slots, c = _first_batch(corpus, MAX_BATCH, epochs[25])
+    rng = np.random.default_rng(SEED + 13)
+    prior = np.zeros(N_TXS, np.int32)
+    prior[: int(slots.max()) + 1] = rng.integers(0, 200, int(slots.max()) + 1)
+    T = torch.from_numpy
+    vote = [T(np.ascontiguousarray(x)) for x in (c.s_nibbles, c.h_nibbles, c.val_idx, c.r_y,
+                                                  c.r_sign, c.pre_ok, slots)]
+    powers = torch.tensor(corpus.powers, dtype=torch.int32)
+    dev0 = mesh.devices[0]
+    packed = to_host(sharded_compact_step_packed(mesh, fe_radix=25)(
+        *vote, mesh.replicate(epochs[25].device_tables(dev0)), powers, T(prior), corpus.quorum))
+    return dict(msgs=msgs, sigs=sigs, vix=vix, slots=slots, vote=vote, powers=powers,
+                prior=T(prior), epochs=epochs, packed=packed)
+
+
+def radix13_mesh_path(corpus: Corpus, mesh: Mesh, ref: dict) -> dict:
+    """On the radix-13 path: one sharded step over the round-robin mesh
+    (4 x txf_verify of verify13, partial tallies, the psum), equal to the
+    radix-25 step's packed output; then the K5 entry point over the same
+    votes (sharded_verify_and_tally, txf_verify_tables of verify13),
+    equal to the step's valid and stake."""
+    dev0 = mesh.devices[0]
+    e13 = ref["epochs"][13]
+    c13 = ed25519_batch.prepare_compact(ref["msgs"], ref["sigs"], ref["vix"], e13)
+    vote = [torch.from_numpy(np.ascontiguousarray(x)) for x in (
+        c13.s_nibbles, c13.h_nibbles, c13.val_idx, c13.r_y, c13.r_sign, c13.pre_ok)] + [ref["vote"][6]]
+    for a, b in zip(vote, ref["vote"]):
+        require(bool((a == b).all()), "the radix-13 prep differs from the radix-25 prep")
+    got = to_host(sharded_compact_step_packed(mesh, fe_radix=13)(
+        *vote, mesh.replicate(e13.device_tables(dev0)), ref["powers"], ref["prior"], corpus.quorum))
+    require(bool((got == ref["packed"]).all()), "radix-13 sharded step != radix-25 packed output")
+    pb = ed25519_batch.prepare_batch(ref["msgs"], ref["sigs"], ref["vix"], e13)
+    per_vote = ref["powers"][torch.from_numpy(ref["vix"].astype(np.int64))]
+    svt = sharded_verify_and_tally(mesh, fe_radix=13)(
+        [torch.from_numpy(np.ascontiguousarray(x)) for x in (
+            pb.s_nibbles, pb.h_nibbles, pb.a_tables, pb.r_y, pb.r_sign, pb.pre_ok)],
+        ref["vote"][6], per_vote, ref["prior"], corpus.quorum)
+    n, bs = MAX_BATCH, MAX_BATCH // mesh.size
+    rows = got.reshape(mesh.size, -1)
+    require(bool((to_host(svt[0]).int() == rows[:, :bs].reshape(-1)).all()), "radix-13 K5 valid != step")
+    require(all(bool((st.cpu() == rows[0, bs : bs + N_TXS]).all()) for st in svt[1]),
+            "radix-13 K5 stake != step")
+    log(f"radix 13: the sharded step over {[str(d) for d in mesh.devices]} ({n} rows) equals the "
+        f"radix-25 packed output bit for bit; K5 over the mesh agrees ({int(rows[:, :bs].sum())} valid)")
+    return {"mesh13_rows": n, "mesh13_equal_radix25": True}
+
+
+def k8_rows(card: dict, k3: dict, dev, launches: dict, ptx: dict) -> tuple[list[dict], dict]:
+    """K8 under each kernel of the verify13 library, at the main path's
+    shapes: fe13_ops on N_FE elements, dsm_encode13 on N_DSM pairs,
+    verify13 (K3 over K8) and verify_tables13 (K5 over K8) on the K3 batch
+    of MAX_BATCH rows -- bit-exact against their plain versions (verify13
+    over the whole batch, verify_tables13 on a sub-batch) and mask-equal
+    to the radix-25 kernel on the whole batch -- each timed beside its
+    bound; and the A/B of K3 against verify13 in one window sequence."""
+    rows = []
+    rng = np.random.default_rng(SEED + 11)
+    P = fe13.P_INT
+    edge = [0, 1, P - 1, P, P + 18, 2**255 - 1, 2**255 - 19, 19]
+    vals = edge + [int.from_bytes(rng.bytes(32), "little") & (2**255 - 1)
+                   for _ in range(N_FE - len(edge))]
+    other = vals[1:] + vals[:1]
+
+    def limbs(xs):
+        return torch.from_numpy(fe13.bytes_to_limbs_np(np.stack(
+            [np.frombuffer(x.to_bytes(32, "little"), np.uint8) for x in xs]))).to(dev)
+
+    a, b = limbs(vals), limbs(other)
+    k = fe13.fe13_ops(a, b)
+    p = fe13.fe13_ops_plain(a, b)
+    torch.cuda.synchronize()
+    require(bool((k == p).all()), "K8 fe13_ops kernel != plain")
+    kh = k.cpu().numpy()
+    for i in (0, 1, 2, 3, 4, 5, N_FE - 1):
+        x, y = vals[i], other[i]
+        want = [(x * y) % P, (x * x) % P, (x - y) % P, pow(x, P - 2, P), x % P]
+        require([fe13.limbs_to_int(r) for r in kh[i]] == want, f"K8 row {i} != ints")
+    ms = cuda_ms_window(lambda: fe13.fe13_ops(a, b), 50)
+    pms = cuda_ms(lambda: fe13.fe13_ops_plain(a, b), 3)
+    bnd, by = bound_ms(card, nbytes(a, b, k), N_FE * fe13.MULS_PER_FE_OPS * fe13.MADS_PER_MUL)
+    rows.append(dict(name="K8 fe25519_13 radix-2^13 field ops (fe_ops kernel of verify13 alone; "
+                          "runs inside txf_verify of verify13 on the radix-13 path)",
+                     route="cuda", source="txflow_tpu_torch/csrc/fe25519_13.cuh",
+                     replaces="txflow_tpu/ops/fe13.py:113", launched_in="txf_verify (verify13)",
+                     launches=launches["verify13"], max_abs_err=int((k - p).abs().max()), ms=ms,
+                     plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=None,
+                     shape=f"{N_FE} x (mul,sq,sub,inv,freeze)"))
+    log(f"K8 fe13_ops: bit-exact over {N_FE} elements; {ms:.4f} ms (plain {pms:.1f} ms, bound {bnd:.5f} ms by {by})")
+
+    args25 = k3["args"]
+    epoch13 = ed25519_batch.EpochTables(k3["keys"], fe_radix=13)
+    tables13 = epoch13.device_tables(dev)
+    args13 = (*args25[:3], tables13, *args25[4:])
+    # K2 over K8: scalar pairs
+    s_nib = torch.from_numpy(rng.integers(0, 16, (N_DSM, 64), dtype=np.uint8)).to(dev)
+    h_nib = torch.from_numpy(rng.integers(0, 16, (N_DSM, 64), dtype=np.uint8)).to(dev)
+    vidx = torch.from_numpy(rng.integers(0, N_VALS, N_DSM).astype(np.int32)).to(dev)
+    k2 = curve.dsm_encode(s_nib, h_nib, vidx, tables13, fe_radix=13)
+    p2 = curve.dsm_encode_plain(s_nib, h_nib, vidx, tables13, fe_radix=13)
+    k2_25 = curve.dsm_encode(s_nib, h_nib, vidx, args25[3], fe_radix=25)
+    torch.cuda.synchronize()
+    require(bool((k2[0] == p2[0]).all() and (k2[1] == p2[1]).all()), "K8 dsm_encode13 kernel != plain")
+    require(bool((fe13.frozen_to_bytes(k2[0].cpu().numpy()) == fe.frozen_to_bytes(k2_25[0].cpu().numpy())).all()
+                 and (k2[1] == k2_25[1]).all()), "dsm_encode13 != dsm_encode over radix 25")
+    ms = cuda_ms_window(lambda: curve.dsm_encode(s_nib, h_nib, vidx, tables13, fe_radix=13), 10)
+    pms = cuda_ms(lambda: curve.dsm_encode_plain(s_nib, h_nib, vidx, tables13, fe_radix=13), 2)
+    bnd, by = bound_ms(card, nbytes(s_nib, h_nib, vidx, tables13, *k2),
+                       N_DSM * curve.MULS_PER_DSM_ENCODE * fe13.MADS_PER_MUL)
+    rows.append(dict(name="K2 over K8: double-scalar multiply + encode (dsm_encode kernel of verify13 alone; "
+                          "runs inside txf_verify of verify13)", route="cuda",
+                     source="txflow_tpu_torch/csrc/ge25519.cuh (-DTXF_FE_RADIX=13)",
+                     replaces="txflow_tpu/ops/curve.py:162", launched_in="txf_verify (verify13)",
+                     launches=launches["verify13"],
+                     max_abs_err=int(max((k2[0] - p2[0]).abs().max(), (k2[1] - p2[1]).abs().max())),
+                     ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=None,
+                     shape=f"{N_DSM} pairs"))
+    log(f"K8 dsm_encode13: bit-exact over {N_DSM} pairs, y and parity equal to radix 25; {ms:.4f} ms "
+        f"(plain {pms:.1f} ms, bound {bnd:.5f} ms by {by})")
+
+    # K3 over K8: the K3 batch of MAX_BATCH rows, the plain version over the whole batch
+    n, n_ok = k3["n"], k3["n_ok"]
+    mask25 = k3["mask"]
+    k = ed25519_batch.verify_kernel_gather(*args13, fe_radix=13)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    p = ed25519_batch.verify_kernel_gather_plain(*args13, fe_radix=13)
+    e1.record()
+    torch.cuda.synchronize()
+    pms = e0.elapsed_time(e1)
+    require(bool((k == p).all()), "K8 verify13 kernel != plain")
+    require(bool((k == mask25).all()), "verify13 mask != the radix-25 kernel's")
+    require(k[n].item() and not k[n + 1].item(), "radix 13: non-canonical R check failed")
+    mads13 = ed25519_batch.mads_per_signature(13)
+    bnd13, by13 = bound_ms(card, nbytes(*args13[:3], *args13[4:]) + nbytes(tables13) + MAX_BATCH * 4,
+                           n_ok * mads13)
+    # the A/B: K3 and verify13 in turns (K3, K8, K8, K3)
+    ab = []
+    for r, args in ((25, args25), (13, args13), (13, args13), (25, args25)):
+        ab.append(cuda_ms_window(lambda: ed25519_batch.verify_kernel_gather(*args, fe_radix=r), 10))
+    ms = (ab[1] + ab[2]) / 2
+    rows.append(dict(name="K3 over K8: ed25519 verify (txf_verify of verify13)", route="cuda",
+                     source="txflow_tpu_torch/csrc/verify.cu (-DTXF_FE_RADIX=13), "
+                            "txflow_tpu_torch/csrc/fe25519_13.cuh",
+                     replaces="txflow_tpu/ops/ed25519_batch.py:384 under txflow_tpu/ops/fe.py:173",
+                     launches=launches["verify13"], max_abs_err=int((k.int() - p.int()).abs().max()),
+                     ms=ms, plain_ms=pms, bound_ms=bnd13, bound_by=by13, library_ms=None,
+                     shape=f"{MAX_BATCH} rows, {n_ok} past the host pre-checks",
+                     time_note="plain: one run over the whole batch"))
+    reg = {lib: ptx[lib]["kernels"].get("txf_verify_kernel", {}) for lib in ("verify", "verify13")}
+    ab_line = {"rows": MAX_BATCH, "k3_ms": [ab[0], ab[3]], "verify13_ms": [ab[1], ab[2]],
+               "verify13_over_k3": ms / ((ab[0] + ab[3]) / 2),
+               "k3_bound_ms": bound_ms(card, 0, n_ok * ed25519_batch.mads_per_signature(25))[0],
+               "verify13_bound_ms": bnd13,
+               "registers": {lib: reg[lib].get("registers") for lib in reg},
+               "stack_bytes": {lib: reg[lib].get("stack_bytes") for lib in reg},
+               "spill_store_bytes": {lib: ptx[lib]["spill_store_bytes"] for lib in reg},
+               "spill_load_bytes": {lib: ptx[lib]["spill_load_bytes"] for lib in reg}}
+    log(f"K8 verify13: bit-exact over {MAX_BATCH} rows (plain over the whole batch), mask equal to "
+        f"the radix-25 kernel; {ms:.3f} ms (plain {pms:.1f} ms, bound {bnd13:.4f} ms by {by13})")
+    log("A/B K3 (radix 2^25.5) vs verify13 (radix 2^13) at "
+        f"{MAX_BATCH} rows, in turns: " + json.dumps(ab_line))
+
+    # K5 over K8: per-vote gathered radix-13 tables; plain on a sub-batch
+    vi = args25[2].long().clamp(0, tables13.shape[0] - 1)
+    k5_args = (args25[0], args25[1], tables13[vi].contiguous(), args25[4], args25[5], args25[6])
+    k5 = ed25519_batch.verify_kernel(*k5_args, fe_radix=13)
+    sub = torch.cat([torch.arange(0, min(1024, n), device=dev), torch.tensor([n, n + 1], device=dev)])
+    p5 = ed25519_batch.verify_kernel_plain(*(x[sub] for x in k5_args), fe_radix=13)
+    torch.cuda.synchronize()
+    require(bool((k5[sub] == p5).all()), "K8 verify_tables13 kernel != plain on the sub-batch")
+    require(bool((k5 == mask25).all()), "verify_tables13 mask != the radix-25 kernel's")
+    ms5 = cuda_ms_window(lambda: ed25519_batch.verify_kernel(*k5_args, fe_radix=13), 10)
+    pms5 = cuda_ms(lambda: ed25519_batch.verify_kernel_plain(*(x[sub] for x in k5_args), fe_radix=13), 1)
+    bnd5, by5 = bound_ms(card, nbytes(*k5_args) + MAX_BATCH * 4, n_ok * mads13)
+    rows.append(dict(name="K5 over K8: verify over per-vote tables (txf_verify_tables of verify13)",
+                     route="cuda", source="txflow_tpu_torch/csrc/verify.cu (-DTXF_FE_RADIX=13)",
+                     replaces="txflow_tpu/ops/ed25519_batch.py:146 under txflow_tpu/ops/fe.py:173",
+                     launches=launches["verify_tables13"],
+                     max_abs_err=int((k5[sub].int() - p5.int()).abs().max()), ms=ms5, plain_ms=pms5,
+                     bound_ms=bnd5, bound_by=by5, library_ms=None,
+                     shape=f"{MAX_BATCH} rows, {n_ok} past the host pre-checks",
+                     time_note=f"plain: {len(sub)} rows (the sub-batch held bit-exact)"))
+    log(f"K8 verify_tables13: bit-exact on {len(sub)} rows, mask equal to radix 25 over {MAX_BATCH}; "
+        f"{ms5:.3f} ms (plain {pms5:.1f} ms on the sub-batch, bound {bnd5:.4f} ms by {by5})")
+    return rows, ab_line
+
+
+def wide_check(corpus: Corpus, mesh: Mesh, flow) -> dict:
+    """On the int64 path, after the engine's run: the engine's own
+    verifier (total power >= 2^30, int64 tally) and the port's
+    ScalarVoteVerifier on the same batch -- the first votes in arrival
+    order with a nonzero prior -- give the same decisions and stake sums;
+    so does a DeviceVoteVerifier of the same set over the round-robin
+    mesh (txf_tally_partial64 per shard, txf_reduce_quorum64)."""
+    n = MAX_BATCH if host_ed.HAVE_CRYPTOGRAPHY else 1024  # the host verifier's time
+    vals = flow.val_set
+    msgs, sigs, vix, slots, _c = _first_batch(corpus, n, flow.verifier.epoch)
+    n_slots = int(slots.max()) + 1
+    total = vals.total_voting_power()  # prior stake between 1/3 and 2/3 of it: some slots cross
+    prior = np.random.default_rng(SEED + 17).integers(total // 3, total * 2 // 3, n_slots)
+    got = flow.verifier.verify_and_tally(msgs, sigs, vix, slots, n_slots, prior_stake=prior)
+    want = ScalarVoteVerifier(vals).verify_and_tally(msgs, sigs, vix, slots, n_slots, prior_stake=prior)
+    sharded = DeviceVoteVerifier(vals, mesh=mesh, fe_radix=25).verify_and_tally(
+        msgs, sigs, vix, slots, n_slots, prior_stake=prior)
+    for name, r in (("one card", got), ("mesh", sharded)):
+        for f in ("valid", "stake", "maj23", "dropped"):
+            require(np.array_equal(getattr(r, f), getattr(want, f)), f"int64 tally ({name}) {f} != scalar")
+    require(int(want.stake.max()) >= 2**31 and 0 < int(want.maj23.sum()) < n_slots,
+            "int64 check too weak")
+    log(f"int64 tally: the engine's verifier and a {mesh.size}-shard one equal ScalarVoteVerifier on "
+        f"{n} votes over {n_slots} slots (stake up to {int(want.stake.max())}, "
+        f"{int(want.maj23.sum())} slots at quorum)")
+    return {"wide_check_votes": n, "wide_check_slots": n_slots, "wide_check_max_stake": int(want.stake.max())}
+
+
+def wide_rows(card: dict, corpus: Corpus, k3: dict, dev, launches: dict, scale: int) -> list[dict]:
+    """The int64 tally kernels at the main path's shapes (the K3 batch of
+    MAX_BATCH votes over N_TXS slots, powers ``scale`` times the corpus'),
+    each bit-exact against its plain version and timed beside its bound
+    and one PyTorch call of the same function."""
+    rows = []
+    args, S = k3["args"], N_TXS
+    valid = k3["mask"].int()
+    slot_t, vidx = k3["slot"], args[2]
+    powers = torch.zeros(32, dtype=torch.int64, device=dev)
+    powers[:N_VALS] = torch.tensor(corpus.powers, dtype=torch.int64) * scale
+    prior = k3["prior"].long() * scale
+    quorum = (int(powers.sum()) * 2) // 3 + 1
+    sw = torch.empty(2 * S, dtype=torch.int32, device=dev)
+    mj = torch.empty(S, dtype=torch.int32, device=dev)
+    tally.tally_into(sw, mj, valid, slot_t, vidx, powers, prior, quorum)
+    pst, pmj = tally.tally_plain(valid.bool(), slot_t, vidx, powers, prior, quorum)
+    torch.cuda.synchronize()
+    kst = sw.view(torch.int64)
+    require(bool((kst == pst).all() and (mj == pmj).all()), "tally64 kernel != plain")
+    require(int(pst.max()) >= 2**31 and 0 < int(pmj.sum()) < S, "tally64 case too weak")
+    ms = cuda_ms_window(lambda: tally.tally_into(sw, mj, valid, slot_t, vidx, powers, prior, quorum), 500, warmup=5)
+    pms = cuda_ms(lambda: tally.tally_plain(valid.bool(), slot_t, vidx, powers, prior, quorum), 20, warmup=2)
+    slot_c, in_range, val_c = slot_t.long().clamp(0, S - 1), (slot_t >= 0) & (slot_t < S), vidx.long()
+    vb = valid.bool()
+
+    def library_tally():
+        return prior.index_add(0, slot_c, torch.where(vb & in_range, powers[val_c], 0)) >= quorum
+
+    require(bool((library_tally().int() == pmj).all()), "index_add int64 tally != plain")
+    lib_ms = cuda_ms_window(library_tally, 500, warmup=5)
+    bnd, by = bound_ms(card, nbytes(valid, slot_t, vidx, powers, prior, sw, mj), MAX_BATCH + S)
+    rows.append(dict(name="K4 int64 stake tally (txf_tally64)", route="cuda",
+                     source="txflow_tpu_torch/csrc/tally.cu", replaces="txflow_tpu/ops/tally.py:114",
+                     launches=launches["tally64"],
+                     max_abs_err=int(max((kst - pst).abs().max(), (mj - pmj).abs().max())),
+                     ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+                     shape=f"{MAX_BATCH} votes, {S} slots, total power {int(powers.sum())}"))
+    log(f"K4 tally64: bit-exact ({int(pmj.sum())} slots at quorum, stake up to {int(pst.max())}); "
+        f"{ms:.4f} ms (plain {pms:.3f}, index_add {lib_ms:.4f}, bound {bnd:.6f} ms by {by})")
+
+    # the partial of each of 4 shards, then their reduction with the prior
+    bs = MAX_BATCH // MESH_SHARDS
+    parts = [tally.tally_partial(valid[i * bs:(i + 1) * bs], slot_t[i * bs:(i + 1) * bs],
+                                 vidx[i * bs:(i + 1) * bs], powers, S) for i in range(MESH_SHARDS)]
+    plains = [tally.tally_partial_plain(valid[i * bs:(i + 1) * bs], slot_t[i * bs:(i + 1) * bs],
+                                        vidx[i * bs:(i + 1) * bs], powers, S) for i in range(MESH_SHARDS)]
+    torch.cuda.synchronize()
+    require(all(bool((a == b).all()) for a, b in zip(parts, plains)) and parts[0].dtype == torch.int64,
+            "tally_partial64 kernel != plain")
+    v0, s0, i0 = valid[:bs], slot_t[:bs], vidx[:bs]
+    ms = cuda_ms_window(lambda: tally.tally_partial(v0, s0, i0, powers, S), 500, warmup=5)
+    pms = cuda_ms(lambda: tally.tally_partial_plain(v0, s0, i0, powers, S), 20, warmup=2)
+    zeros = torch.zeros(S, dtype=torch.int64, device=dev)
+    sc0, ir0 = s0.long().clamp(0, S - 1), (s0 >= 0) & (s0 < S)
+
+    def library_partial():
+        return zeros.index_add(0, sc0, torch.where((v0 > 0) & ir0, powers[i0.long()], 0))
+
+    require(bool((library_partial() == parts[0]).all()), "index_add int64 partial != kernel")
+    lib_ms = cuda_ms_window(library_partial, 500, warmup=5)
+    bnd, by = bound_ms(card, nbytes(v0, s0, i0, powers) + S * 8, bs)
+    rows.append(dict(name="K7 int64 per-shard partial tally (txf_tally_partial64)", route="cuda",
+                     source="txflow_tpu_torch/csrc/tally.cu", replaces="txflow_tpu/parallel/mesh.py:114",
+                     launches=launches["tally_partial64"],
+                     max_abs_err=int(max((a - b).abs().max() for a, b in zip(parts, plains))),
+                     ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+                     shape=f"{bs} votes (one of {MESH_SHARDS} shards), {S} slots"))
+    log(f"K7 partial64: bit-exact on {MESH_SHARDS} shards; {ms:.4f} ms (plain {pms:.3f}, index_add "
+        f"{lib_ms:.4f}, bound {bnd:.6f} ms by {by})")
+    stacked = torch.stack(parts)
+    rst, rmj = tally.reduce_quorum(stacked, prior, quorum)
+    pst2, pmj2 = tally.reduce_quorum_plain(stacked, prior, quorum)
+    torch.cuda.synchronize()
+    require(bool((rst == pst2).all() and (rmj == pmj2).all() and (rst == pst).all()),
+            "reduce_quorum64 kernel != plain (or != the one-card tally)")
+    ms = cuda_ms_window(lambda: tally.reduce_quorum(stacked, prior, quorum), 500, warmup=5)
+    pms = cuda_ms(lambda: tally.reduce_quorum_plain(stacked, prior, quorum), 20, warmup=2)
+
+    def library_reduce():
+        total = stacked.sum(0) + prior
+        return total, total >= quorum
+
+    lt, lm = library_reduce()
+    require(bool((lt == rst).all() and (lm.int() == rmj).all()), "torch int64 reduction != kernel")
+    lib_ms = cuda_ms_window(library_reduce, 500, warmup=5)
+    bnd, by = bound_ms(card, nbytes(stacked, prior) + S * 8 + S * 4, (MESH_SHARDS + 1) * S)
+    rows.append(dict(name="K7 int64 psum: partials + prior >= quorum (txf_reduce_quorum64)", route="cuda",
+                     source="txflow_tpu_torch/csrc/tally.cu", replaces="txflow_tpu/ops/tally.py:101",
+                     launches=launches["reduce_quorum64"],
+                     max_abs_err=int(max((rst - pst2).abs().max(), (rmj - pmj2).abs().max())),
+                     ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+                     shape=f"{MESH_SHARDS} partials x {S} slots"))
+    log(f"K7 reduce64: bit-exact, equal to the one-card int64 tally; {ms:.4f} ms (plain {pms:.3f}, "
+        f"stack().sum(0) + prior and compare {lib_ms:.4f}, bound {bnd:.6f} ms by {by})")
+    return rows
+
+
 def cross_card_phase() -> None:
     """K1, K2 and K3 on every visible card, the last card first, against
     their plain versions on the CPU and, for K3, the golden model."""
@@ -1398,7 +1852,7 @@ def cross_card_phase() -> None:
     rng = np.random.default_rng(SEED + 2)
     seeds = [rng.bytes(32) for _ in range(4)]
     pubs = [host_ed.public_key_from_seed(s) for s in seeds]
-    epoch = ed25519_batch.EpochTables(pubs)
+    epoch = ed25519_batch.EpochTables(pubs, fe_radix=25)
     n = 32
     msgs = [rng.bytes(48) for _ in range(n)]
     vix = rng.integers(0, 4, n)
@@ -1485,18 +1939,36 @@ def main() -> int:
     require(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     for name in _lib.LIBS:
         txt = (_lib.BUILD / f"lib{name}.build.txt").read_text()
-        log("\n".join(f"  {name}: {ln.strip()}" for ln in txt.splitlines() if "Used" in ln))
+        log("\n".join(f"  {name}: {ln.strip()}" for ln in txt.splitlines()
+                      if "Used" in ln or "spill" in ln or "Function properties" in ln))
+    ptx = ptxas_info()
+    log("ptxas (registers, stack and spill bytes by library): " + json.dumps(ptx))
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     corpus = Corpus(SEED)
     log(f"corpus: {len(corpus.votes)} votes signed in {corpus.sign_s:.1f} s "
         f"({time.perf_counter() - t0:.1f} s with setup); {sum(corpus.byzantine)} byzantine; "
         f"{int(corpus.expect_commit.sum())}/{N_TXS} txs reach quorum on honest stake")
-    rows = kernel_phase(card, corpus, dev)
-    sl = slice_phase(corpus, dev)
+    rows, k3 = kernel_phase(card, corpus, dev)
+    sl, sl_res = slice_phase(corpus, dev)
     by_name = {"K1": "verify", "K2": "verify", "K3": "verify", "K4": "tally"}
     for r in rows:
         r["launches"] = sl["launches"][by_name[r["name"][:2]]]
+    # the radix-2^13 field (K8): the slice, a sharded step and K5 over the
+    # round-robin mesh, all between one reset and one read of the counts
+    mesh_rr = round_robin_mesh(MESH_SHARDS)
+    ref13 = radix13_mesh_reference(corpus, mesh_rr)
+    s13, _ = slice_phase(corpus, dev, fe_radix=13, ref=sl_res, label="radix-13 slice",
+                         extra=lambda flow: radix13_mesh_path(corpus, mesh_rr, ref13))
+    k8, ab = k8_rows(card, k3, dev, s13["launches"], ptx)
+    rows += k8
+    # total power >= 2^30: every power times 2^25, the int64 tally
+    scale = 2**25
+    wide, _ = slice_phase(corpus, dev, scale=scale, ref=sl_res, label="int64 slice",
+                          extra=lambda flow: wide_check(corpus, mesh_rr, flow))
+    require(wide["launches"]["tally_partial64"] > 0 and wide["launches"]["reduce_quorum64"] > 0,
+            "the int64 mesh kernels never ran")
+    rows += wide_rows(card, corpus, k3, dev, wide["launches"], scale)
     t0 = time.perf_counter()
     com = CommitteeCorpus(SEED + 3)
     log(f"committee corpus: {len(com.votes)} votes signed in {com.sign_s:.1f} s "
@@ -1516,6 +1988,10 @@ def main() -> int:
     log(f"committee: K6 busy share of the step time (kernel-row ms x launches) "
         f"{cm['k6_busy_share_from_rows']}")
     rows += k6
+    k6_13 = k6_rows(card, com, dev, fe_radix=13, rungs=(8, 16384))
+    for r in k6_13:
+        r["launches"] = cm["k6_13_launches"]  # K6 over K8 launches of the radix-13 follower
+    rows += k6_13
     # the mesh-sharded serving step: 4 shards over the visible cards in turn
     mcorpus = _mesh_corpus()
     mesh = round_robin_mesh(MESH_SHARDS)
@@ -1523,7 +1999,11 @@ def main() -> int:
     rows += mesh_rows(card, mcorpus, mesh, fb, mp["launches"], mp["mesh"]["steps"])
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernels": rows, "slice": sl, "committee": cm, "mesh": mp}, f, indent=1)
+        json.dump({"card": card, "ptxas": ptx, "kernels": rows, "slice": sl, "radix13_slice": s13,
+                   "int64_slice": wide, "ab_k3_verify13": ab, "committee": cm, "mesh": mp}, f, indent=1)
+    for name, run in (("radix13_slice", s13), ("int64_slice", wide)):
+        log(json.dumps({name: {k: v for k, v in run.items() if k != "step_s"}}))
+    log(json.dumps({"ab_k3_verify13": ab}))
     log(json.dumps({"committee": {k: v for k, v in cm.items() if k not in (
         "step_s", "vote_heights_per_response", "k6_one_launch_window_ms_per_group",
         "k6_main_path_checked")}}))

@@ -1,10 +1,11 @@
 """PyTorch port, kernel launch rules (``txflow_tpu_torch/ops/_lib.py``) with
 the card and the CUDA library faked: every launch runs with its tensors'
 card current (switching only when another card is current) and on that
-card's stream, the verify library's ``__constant__`` base table is copied
-to each card before its first launch there (once per card), an empty
-launch is neither made nor counted, and a CUDA error raises without
-counting."""
+card's stream, each verify library's ``__constant__`` base table (its own
+field's: ``verify`` radix 2^25.5, ``verify13`` radix 2^13) is copied to
+each card before that library's first launch there (once per library and
+card), an empty launch is neither made nor counted, and a CUDA error
+raises without counting."""
 
 import contextlib
 from types import SimpleNamespace
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 from txflow_tpu_torch.ops import _lib
-from txflow_tpu_torch.ops.curve import BASE_TABLE
+from txflow_tpu_torch.ops.curve import BASE_TABLE, BASE_TABLES
 
 
 class FakeLib:
@@ -48,6 +49,29 @@ class FakeLib:
         raise AttributeError(name)
 
 
+class FakeLib13:
+    """The verify13 library's face of the fake: the same cards, call log
+    and error code; its entries are logged with a 13 suffix and its table
+    (radix 2^13, [16, 4, 20]) is kept apart."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        self.tables = {}
+
+    def txf_set_base_table(self, ptr):
+        self.lib.calls.append(("table13", self.lib.current))
+        n = BASE_TABLES[13].size
+        self.tables[self.lib.current] = np.ctypeslib.as_array(
+            (np.ctypeslib.ctypes.c_int32 * n).from_address(ptr)
+        ).copy()
+        return 0
+
+    def __getattr__(self, name):
+        if name.startswith("txf_"):
+            return self.lib._entry(name + "13")
+        raise AttributeError(name)
+
+
 @pytest.fixture
 def fake(monkeypatch):
     lib = FakeLib()
@@ -61,7 +85,8 @@ def fake(monkeypatch):
         finally:
             lib.current = prev
 
-    monkeypatch.setattr(_lib, "_loaded", {"verify": lib, "tally": lib})
+    lib.v13 = FakeLib13(lib)
+    monkeypatch.setattr(_lib, "_loaded", {"verify": lib, "verify13": lib.v13, "tally": lib})
     monkeypatch.setattr(_lib, "_tabled", set())
     monkeypatch.setattr(_lib, "launches", {k: 0 for k in _lib.KERNELS})
     monkeypatch.setattr(torch.cuda, "device", device)
@@ -114,3 +139,46 @@ def test_cuda_error_raises_and_is_not_counted(fake):
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         _lib.launch("fe_ops", "txf_fe_ops", on(0), 16, 16)
     assert _lib.launches["fe_ops"] == 0
+
+
+def test_each_verify_library_sets_its_own_base_table_on_each_card(fake):
+    """The two verify libraries hold their own __constant__ tables: the
+    first launch of each library on each card copies that library's
+    field's table there, once; a launch of one library never stands in
+    for the other's."""
+    _lib.launch("verify", "txf_verify", on(0), 64, 11, 64)
+    _lib.launch("verify13", "txf_verify", on(0), 64, 11, 64)
+    _lib.launch("dsm_encode13", "txf_dsm_encode", on(1), 8, 11, 8)
+    _lib.launch("verify_tables13", "txf_verify_tables", on(0), 64, 11, 64)
+    _lib.launch("fe13_ops", "txf_fe_ops", on(1), 16, 16)
+    _lib.launch("verify_tables", "txf_verify_tables", on(1), 64, 11, 64)
+    assert fake.calls == [
+        ("table", 0), ("txf_verify", 0, 1000),
+        ("table13", 0), ("txf_verify13", 0, 1000),
+        ("table13", 1), ("txf_dsm_encode13", 1, 1001),
+        ("txf_verify_tables13", 0, 1000),
+        ("txf_fe_ops13", 1, 1001),
+        ("table", 1), ("txf_verify_tables", 1, 1001),
+    ]
+    for card in (0, 1):
+        np.testing.assert_array_equal(fake.tables[card], BASE_TABLE.reshape(-1))
+        np.testing.assert_array_equal(fake.v13.tables[card], BASE_TABLES[13].reshape(-1))
+    assert _lib._tabled == {("verify", 0), ("verify13", 0), ("verify13", 1), ("verify", 1)}
+    assert {k: _lib.launches[k] for k in ("verify", "verify13", "dsm_encode13",
+                                           "verify_tables13", "fe13_ops", "verify_tables")} == {
+        "verify": 1, "verify13": 1, "dsm_encode13": 1, "verify_tables13": 1, "fe13_ops": 1,
+        "verify_tables": 1}
+
+
+def test_libraries_are_keyed_by_library_not_source():
+    """verify.cu builds twice (its own flags each, one output each); every
+    kernel names a library that exists, and the radix-2^13 kernels live in
+    verify13."""
+    assert _lib.LIBS["verify"][0] == _lib.LIBS["verify13"][0] == "verify.cu"
+    assert _lib.LIBS["verify"][1] == [] and _lib.LIBS["verify13"][1] == ["-DTXF_FE_RADIX=13"]
+    assert set(_lib.KERNELS.values()) == set(_lib.LIBS)
+    assert {k for k, v in _lib.KERNELS.items() if v == "verify13"} == {
+        "fe13_ops", "dsm_encode13", "verify13", "verify_tables13"}
+    assert {k for k, v in _lib.KERNELS.items() if k.endswith("64")} == {
+        "tally64", "tally_partial64", "reduce_quorum64"}
+    assert _lib.BASE_TABLE_RADIX == {"verify": 25, "verify13": 13}

@@ -255,19 +255,50 @@ def test_device_verifier_rotation_restages_then_rebuilds():
     assert flow.last_rotation is last and flow.height == 4
 
 
-def test_rotation_past_int32_tally_cap_raises():
-    """A set whose total power reaches 2^30 raises from the device
-    verifier, as at construction; the JAX engine would fall back to a host
-    verifier there. The engine keeps the old epoch's set, map and verifier
-    together."""
-    _by_addr, _jvals, pvals = _validators()
-    flow = _port_engine_device(pvals)
-    before = (flow.height, flow.val_set, flow.verifier, dict(flow._addr_to_idx))
-    huge = ptypes.ValidatorSet(
-        [ptypes.Validator(v.address, v.pub_key, 2**28) for v in pvals]
-    )
-    with pytest.raises(ValueError, match="2\\^30"):
-        flow.update_state(2, huge)
-    assert (flow.height, flow.val_set, flow.verifier, flow._addr_to_idx) == before
-    assert flow.height == 1
-    assert flow.last_rotation is None
+def test_rotation_past_int32_tally_cap_matches_jax():
+    """A rotation into a set whose total power reaches 2^30 (8 validators
+    at 2^28): the port's device verifier restages in place into its int64
+    tally, where the JAX engine serves such a set on its host verifier.
+    Both engines run the same votes before and after the rotation; the
+    rotation record, certificate bytes, commit order, app digest,
+    uncommitted stake and pool size must be identical."""
+    by_addr, jvals, pvals = _validators()
+    jhuge = jtypes.ValidatorSet([jtypes.Validator(v.address, v.pub_key, 2**28) for v in jvals])
+    phuge = _to_port_set(jhuge)
+    assert phuge.total_voting_power() == 2**31
+    sides = [_engine(False, jvals, None), _engine(True, pvals, None)]
+    dv = sides[1][0].verifier
+    assert not dv._stage.wide
+    txs = [b"wide%d=%d" % (i, i) for i in range(5)]
+    for _f, mempool, *_ in sides:
+        for tx in txs:
+            mempool.check_tx(tx)
+    pvs = [by_addr[v.address] for v in jvals]
+    # quorum 54 of 80: 6 votes commit; tx1, tx3 and tx4 stay pending
+    counts = (6, 3, 7, 5, 2)
+    phase1 = [_vote(pvs[m], tx, 1) for tx, c in zip(txs, counts) for m in range(c)]
+    phase1.append(_vote(pvs[7], txs[1], 1, corrupt=True))
+    rng = np.random.default_rng(11)
+    _feed(sides, [phase1[i] for i in rng.permutation(len(phase1))])
+    assert _drain(sides) >= 2
+    for flow, *_ in sides:
+        flow.update_state(2, jhuge if flow is sides[0][0] else phuge)
+    assert sides[1][0].last_rotation == sides[0][0].last_rotation
+    assert sides[1][0].last_rotation["restaged"] is True
+    assert sides[1][0].verifier is dv and dv._stage.wide
+    # after: the pending txs gain votes; tx1 and tx3 cross 2/3 of 2^31
+    phase2 = [_vote(pvs[m], txs[1], 2) for m in range(3, 6)] + [_vote(pvs[5], txs[3], 2)]
+    phase2 += [_vote(pvs[m], txs[4], 2) for m in range(2, 4)]
+    _feed(sides, phase2)
+    assert _drain(sides) >= 1
+    (fj, _mj, pj, sj, aj), (fp, _mp, pp, sp, ap) = sides
+    assert ap.tx_count == aj.tx_count == 4 and ap.state == aj.state
+    assert ap.digest == aj.digest
+    assert sp.committed_hashes_in_order() == sj.committed_hashes_in_order()
+    for tx in txs:
+        h = hashlib.sha256(tx).hexdigest().upper()
+        assert sp.load_cert_row(h) == sj.load_cert_row(h)
+    assert {h: vs.stake() for h, vs in fp.vote_sets.items()} == {
+        h: vs.stake() for h, vs in fj.vote_sets.items()} == {
+        hashlib.sha256(txs[4]).hexdigest().upper(): 4 * 2**28}
+    assert pp.size() == pj.size()

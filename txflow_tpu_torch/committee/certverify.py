@@ -11,7 +11,9 @@ fingerprint, and a committee-mode engine mounts it directly (``submit``
 routes through ``verify_and_tally``).
 
 Shapes: a batch pads to a power-of-two rung (floor 8); the tables are
-[V, 16, 4, 10] with V the committee size, unpadded. Below ``min_batch``
+[V, 16, 4, NLIMB] with V the committee size, unpadded, in the field that
+``fe_radix`` picks at construction (25 or 13, ``ops/field.py``; None
+reads ``TXFLOW_FE_RADIX`` then) and every restage keeps. Below ``min_batch``
 rows the parent's host loop runs instead -- a size rule, counted in
 ``scalar_calls``; a failed launch raises and is never answered by the
 host loop.
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops import ed25519_batch as ops_ed
+from ..ops import field
 from ..types.validator import ValidatorSet
 from ..verifier import (
     ScalarVoteVerifier,
@@ -40,8 +43,10 @@ def _rung(n: int) -> int:
 
 
 class BatchCertVerifier(ScalarVoteVerifier):
-    def __init__(self, val_set: ValidatorSet, min_batch: int = 4, device=None):
+    def __init__(self, val_set: ValidatorSet, min_batch: int = 4, device=None,
+                 fe_radix: int | None = None):
         self.device = resolve_device(device)
+        self.fe_radix = field.resolve(fe_radix)
         self.min_batch = int(min_batch)
         # evidence counters: kernel launches vs host-loop calls, and the
         # rows the launches carried
@@ -62,7 +67,7 @@ class BatchCertVerifier(ScalarVoteVerifier):
         if old is not None and old[0].hash() == new_val_set.hash():
             return True
         pub_keys = [v.pub_key for v in new_val_set]
-        epoch = ops_ed.EpochTables(pub_keys)
+        epoch = ops_ed.EpochTables(pub_keys, self.fe_radix)
         tables = epoch.device_tables(self.device)
         if tables.shape[0] != new_val_set.size():
             raise RuntimeError("staged tables do not match the validator set")
@@ -112,6 +117,7 @@ class BatchCertVerifier(ScalarVoteVerifier):
         out = ops_ed.verify_kernel_gather(
             dev(batch.s_nibbles), dev(batch.h_nibbles), dev(batch.val_idx),
             tables, dev(batch.r_y), dev(batch.r_sign), dev(pre_ok),
+            fe_radix=self.fe_radix,
         )
         self.batch_calls += 1
         self.batched_votes += n

@@ -24,7 +24,9 @@
 // ge25519.cuh never exceed that. fe_freeze accepts 1.1*2^26 / 1.1*2^25.
 //
 // The plain PyTorch version of every function here is in
-// txflow_tpu_torch/ops/fe.py and follows the same operation order.
+// txflow_tpu_torch/ops/fe.py and follows the same operation order. The
+// radix-independent functions (copy, constants, the inversion chain,
+// equality) are in fe_common.cuh, shared with the radix-2^13 field.
 #pragma once
 #include <stdint.h>
 
@@ -32,18 +34,8 @@
 #define TXF_DEV __device__ __forceinline__
 #endif
 
-typedef int32_t fe[10];
-
-TXF_DEV void fe_copy(fe h, const fe f) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) h[i] = f[i];
-}
-
-TXF_DEV void fe_set_small(fe h, int32_t v) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) h[i] = 0;
-  h[0] = v;
-}
+#define TXF_NLIMB 10
+typedef int32_t fe[TXF_NLIMB];
 
 TXF_DEV void fe_add(fe h, const fe f, const fe g) {
 #pragma unroll
@@ -127,7 +119,8 @@ TXF_DEV void fe_mul_small(fe h, const fe f, int32_t c) {
 // carry chain that drops bit 255.
 TXF_DEV void fe_freeze(fe out, const fe f) {
   int32_t h[10];
-  fe_copy(h, f);
+#pragma unroll
+  for (int i = 0; i < 10; ++i) h[i] = f[i];
   int32_t q = (19 * h[9] + ((int32_t)1 << 24)) >> 25;
 #pragma unroll
   for (int i = 0; i < 10; ++i) q = (h[i] + q) >> ((i & 1) ? 25 : 26);
@@ -143,42 +136,8 @@ TXF_DEV void fe_freeze(fe out, const fe f) {
     const int32_t c = h[9] >> 25;
     h[9] -= c * ((int32_t)1 << 25);
   }
-  fe_copy(out, h);
-}
-
-// x^(2^k) by k squarings.
-TXF_DEV void fe_pow2k(fe h, const fe f, int k) {
-  fe_sq(h, f);
-#pragma unroll 1
-  for (int i = 1; i < k; ++i) fe_sq(h, h);
-}
-
-// out = z^(p-2): the 25519 addition chain (254 squarings, 11 multiplies),
-// in the order of txflow_tpu/ops/_fe_common.py:make_inv.
-TXF_DEV void fe_inv(fe out, const fe z) {
-  fe z2, z9, z11, z2_5_0, z2_10_0, z2_20_0, z2_50_0, z2_100_0, t;
-  fe_sq(z2, z);
-  fe_pow2k(t, z2, 2);
-  fe_mul(z9, t, z);
-  fe_mul(z11, z9, z2);
-  fe_sq(t, z11);
-  fe_mul(z2_5_0, t, z9);
-  fe_pow2k(t, z2_5_0, 5);
-  fe_mul(z2_10_0, t, z2_5_0);
-  fe_pow2k(t, z2_10_0, 10);
-  fe_mul(z2_20_0, t, z2_10_0);
-  fe_pow2k(t, z2_20_0, 20);
-  fe_mul(t, t, z2_20_0);  // 2^40 - 2^0
-  fe_pow2k(t, t, 10);
-  fe_mul(z2_50_0, t, z2_10_0);
-  fe_pow2k(t, z2_50_0, 50);
-  fe_mul(z2_100_0, t, z2_50_0);
-  fe_pow2k(t, z2_100_0, 100);
-  fe_mul(t, t, z2_100_0);  // 2^200 - 2^0
-  fe_pow2k(t, t, 50);
-  fe_mul(t, t, z2_50_0);  // 2^250 - 2^0
-  fe_pow2k(t, t, 5);
-  fe_mul(out, t, z11);  // 2^255 - 21
+#pragma unroll
+  for (int i = 0; i < 10; ++i) out[i] = h[i];
 }
 
 // Low 255 bits of a 32-byte little-endian string -> exact limbs (no
@@ -198,9 +157,4 @@ TXF_DEV void fe_from_bytes(fe h, const uint8_t* s) {
   }
 }
 
-TXF_DEV bool fe_equal(const fe a, const fe b) {
-  int32_t d = 0;
-#pragma unroll
-  for (int i = 0; i < 10; ++i) d |= a[i] ^ b[i];
-  return d == 0;
-}
+#include "fe_common.cuh"

@@ -6,23 +6,37 @@
 //
 // Representations follow the JAX package: Extended (X, Y, Z, T) for the
 // accumulator and PNiels (Y+X, Y-X, Z, 2dT) for table entries, which
-// makes an addition 8 field multiplies. A table entry is one row of 40
-// int32 (4 coordinates x 10 limbs). The TPU selected entries with a
-// one-hot matrix product (an MXU trick); here a selection is an indexed
-// load of that row: the base table from __constant__ memory, the
-// validator's epoch table from global memory at row val_idx*16 + nibble.
+// makes an addition 8 field multiplies. A table entry is one row of
+// 4 * TXF_NLIMB int32 (4 coordinates x the field's limbs). The TPU
+// selected entries with a one-hot matrix product (an MXU trick); here a
+// selection is an indexed load of that row: the base table from
+// __constant__ memory, the validator's epoch table from global memory at
+// row val_idx*16 + nibble.
 //
 // What bounds it: field multiplies, 3147 per double-scalar multiply and
 // encode (45 per window over 64 windows, plus 267 for the inversion and
 // the two affine products). The window loop is not unrolled, so the
 // code stays small; each point lives in registers.
 //
-// Bounds: inputs to every fe_mul stay within 3 carried units (see
-// fe25519.cuh): table coordinates are canonical (2 units), accumulator
-// coordinates are fe_mul outputs (1 unit), and each formula adds or
-// subtracts at most three of them before multiplying.
+// One source, two fields: TXF_FE_RADIX=13 (nvcc -DTXF_FE_RADIX=13, the
+// library verify13) builds these formulas over the radix-2^13 field of
+// fe25519_13.cuh (K8); otherwise over the radix-2^25.5 field of
+// fe25519.cuh (K1). The formulas are the same code; only fe and its
+// functions differ.
+//
+// Bounds: radix 2^25.5 -- inputs to every fe_mul stay within 3 carried
+// units (see fe25519.cuh): table coordinates are canonical (2 units),
+// accumulator coordinates are fe_mul outputs (1 unit), and each formula
+// adds or subtracts at most three of them before multiplying. Radix 2^13
+// -- fe_add and fe_sub carry their outputs, so every fe_mul input below is
+// a normalized product, sum, difference or canonical table coordinate
+// (see fe25519_13.cuh); no formula feeds an un-carried sum to fe_mul.
 #pragma once
+#if defined(TXF_FE_RADIX) && TXF_FE_RADIX == 13
+#include "fe25519_13.cuh"
+#else
 #include "fe25519.cuh"
+#endif
 
 struct ge_p3 {
   fe X, Y, Z, T;
@@ -81,14 +95,14 @@ TXF_DEV void ge_pniels_add(ge_p3* r, const ge_p3* p, const ge_pniels* n) {
   fe_mul(r->T, E, H);
 }
 
-// One table row (40 int32) -> PNiels entry.
+// One table row (4 * TXF_NLIMB int32) -> PNiels entry.
 TXF_DEV void ge_load_pniels(ge_pniels* n, const int32_t* row) {
 #pragma unroll
-  for (int i = 0; i < 10; ++i) {
+  for (int i = 0; i < TXF_NLIMB; ++i) {
     n->YpX[i] = row[i];
-    n->YmX[i] = row[10 + i];
-    n->Z[i] = row[20 + i];
-    n->T2d[i] = row[30 + i];
+    n->YmX[i] = row[TXF_NLIMB + i];
+    n->Z[i] = row[2 * TXF_NLIMB + i];
+    n->T2d[i] = row[3 * TXF_NLIMB + i];
   }
 }
 

@@ -15,33 +15,43 @@
 // K5 differ only in where a thread finds its 16-entry -A table: row
 // val_idx of the epoch tables, or its own row of the gathered tables.
 //
-// What bounds it: integer multiply-adds (about 362k per signature, see
-// ge25519.cuh and fe25519.cuh); the inputs are 162 bytes per vote plus
-// the epoch tables (160 bytes a row, V*16 rows, L1/L2-resident for any
-// realistic validator set) -- or, for K5, 2560 bytes of gathered table per
-// vote, still two orders of magnitude under the multiply-add time. Design
-// answer: all curve state in registers, one thread per signature so there
-// is no cross-thread traffic, and rows whose host pre-checks failed
-// (bucket padding, S >= L, off-curve keys, in-batch repeats) return at
-// once instead of computing a result that the AND would discard.
+// Built twice from this one source (ops/_lib.py:LIBS): the library verify
+// over the radix-2^25.5 field (K1), and verify13 with -DTXF_FE_RADIX=13
+// over the radix-2^13 field (K8, fe25519_13.cuh; tables [V, 16, 4, 20]).
+// Each library has its own __constant__ base table in its field's limbs.
+//
+// What bounds it: integer multiply-adds (about 362k per signature over
+// the radix-2^25.5 field, 1.34M 32-bit ones over radix 2^13, see
+// ge25519.cuh and the field headers); the inputs are 162 bytes per vote
+// plus the epoch tables (160 or 320 bytes a row, V*16 rows, L1/L2-resident
+// for any realistic validator set) -- or, for K5, 2560 or 5120 bytes of
+// gathered table per vote, still two orders of magnitude under the
+// multiply-add time. Design answer: all curve state in registers, one
+// thread per signature so there is no cross-thread traffic, and rows
+// whose host pre-checks failed (bucket padding, S >= L, off-curve keys,
+// in-batch repeats) return at once instead of computing a result that
+// the AND would discard.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "fe25519.cuh"
 #include "ge25519.cuh"
 
-#define TXF_ROW 40  // int32 per PNiels table entry
+#define TXF_ROW (4 * TXF_NLIMB)  // int32 per PNiels table entry
 
-// Base-point table [16][4][10], written once per process by
-// txf_set_base_table (the host builds it, ops/curve.py:BASE_TABLE).
+// Base-point table [16][4][TXF_NLIMB], written once per card by
+// txf_set_base_table (the host builds it, ops/curve.py:BASE_TABLES).
 __constant__ int32_t c_base_table[16 * TXF_ROW];
 
 // [s]B + [h](-A), encoded, with vt the 16 x TXF_ROW window table of -A:
-// the shared body of the verify kernels and the dsm_encode kernel.
-__device__ void dsm_encode_row(int i, const uint8_t* __restrict__ s_nib,
-                               const uint8_t* __restrict__ h_nib,
-                               const int32_t* __restrict__ vt, fe y,
-                               int32_t* parity) {
+// the shared body of the verify kernels and the dsm_encode kernel. One
+// compiled copy (not inlined into each kernel), and one copy of each
+// point formula in its window loop (the four doublings and the two
+// additions are loops, not unrolled): the code a build compiles stays a
+// few dozen field products, whichever field.
+__device__ __noinline__ void dsm_encode_row(int i, const uint8_t* __restrict__ s_nib,
+                                            const uint8_t* __restrict__ h_nib,
+                                            const int32_t* __restrict__ vt, fe y,
+                                            int32_t* parity) {
   ge_p3 acc;
   ge_identity(&acc);
   const uint8_t* sn = s_nib + (int64_t)i * 64;
@@ -49,14 +59,16 @@ __device__ void dsm_encode_row(int i, const uint8_t* __restrict__ s_nib,
   ge_pniels n;
 #pragma unroll 1
   for (int w = 0; w < 64; ++w) {
-    ge_double(&acc, &acc, false);
-    ge_double(&acc, &acc, false);
-    ge_double(&acc, &acc, false);
-    ge_double(&acc, &acc, true);
-    ge_load_pniels(&n, c_base_table + (sn[w] & 15) * TXF_ROW);
-    ge_pniels_add(&acc, &acc, &n);
-    ge_load_pniels(&n, vt + (hn[w] & 15) * TXF_ROW);
-    ge_pniels_add(&acc, &acc, &n);
+#pragma unroll 1
+    for (int k = 0; k < 4; ++k) ge_double(&acc, &acc, k == 3);
+#pragma unroll 1
+    for (int t = 0; t < 2; ++t) {
+      if (t == 0)
+        ge_load_pniels(&n, c_base_table + (sn[w] & 15) * TXF_ROW);
+      else
+        ge_load_pniels(&n, vt + (hn[w] & 15) * TXF_ROW);
+      ge_pniels_add(&acc, &acc, &n);
+    }
   }
   ge_encode(y, parity, &acc);
 }
@@ -97,7 +109,8 @@ txf_verify_kernel(const uint8_t* __restrict__ s_nib,
   out[i] = r_matches(i, y, parity, r_y, r_sign);
 }
 
-// K5: the same check with one gathered -A table per vote ([B][16][4][10]).
+// K5: the same check with one gathered -A table per vote
+// ([B][16][4][TXF_NLIMB]).
 __global__ void __launch_bounds__(128)
 txf_verify_tables_kernel(const uint8_t* __restrict__ s_nib,
                          const uint8_t* __restrict__ h_nib,
@@ -134,12 +147,12 @@ txf_dsm_encode_kernel(const uint8_t* __restrict__ s_nib,
                  tables + (int64_t)clamp_val(val_idx[i], n_vals) * 16 * TXF_ROW,
                  y, &parity);
 #pragma unroll
-  for (int l = 0; l < 10; ++l) y_out[(int64_t)i * 10 + l] = y[l];
+  for (int l = 0; l < TXF_NLIMB; ++l) y_out[(int64_t)i * TXF_NLIMB + l] = y[l];
   parity_out[i] = parity;
 }
 
 // Per element: frozen mul(a,b), sq(a), sub(a,b), inv(a), and freeze(a),
-// written as out[i][5][10].
+// written as out[i][5][TXF_NLIMB].
 __global__ void txf_fe_ops_kernel(const int32_t* __restrict__ a,
                                   const int32_t* __restrict__ b,
                                   int32_t* __restrict__ out, int n) {
@@ -147,30 +160,30 @@ __global__ void txf_fe_ops_kernel(const int32_t* __restrict__ a,
   if (i >= n) return;
   fe fa, fb, t, r;
 #pragma unroll
-  for (int l = 0; l < 10; ++l) {
-    fa[l] = a[(int64_t)i * 10 + l];
-    fb[l] = b[(int64_t)i * 10 + l];
+  for (int l = 0; l < TXF_NLIMB; ++l) {
+    fa[l] = a[(int64_t)i * TXF_NLIMB + l];
+    fb[l] = b[(int64_t)i * TXF_NLIMB + l];
   }
-  int32_t* o = out + (int64_t)i * 50;
+  int32_t* o = out + (int64_t)i * 5 * TXF_NLIMB;
   fe_mul(t, fa, fb);
   fe_freeze(r, t);
 #pragma unroll
-  for (int l = 0; l < 10; ++l) o[l] = r[l];
+  for (int l = 0; l < TXF_NLIMB; ++l) o[l] = r[l];
   fe_sq(t, fa);
   fe_freeze(r, t);
 #pragma unroll
-  for (int l = 0; l < 10; ++l) o[10 + l] = r[l];
+  for (int l = 0; l < TXF_NLIMB; ++l) o[1 * TXF_NLIMB + l] = r[l];
   fe_sub(t, fa, fb);
   fe_freeze(r, t);
 #pragma unroll
-  for (int l = 0; l < 10; ++l) o[20 + l] = r[l];
+  for (int l = 0; l < TXF_NLIMB; ++l) o[2 * TXF_NLIMB + l] = r[l];
   fe_inv(t, fa);
   fe_freeze(r, t);
 #pragma unroll
-  for (int l = 0; l < 10; ++l) o[30 + l] = r[l];
+  for (int l = 0; l < TXF_NLIMB; ++l) o[3 * TXF_NLIMB + l] = r[l];
   fe_freeze(r, fa);
 #pragma unroll
-  for (int l = 0; l < 10; ++l) o[40 + l] = r[l];
+  for (int l = 0; l < TXF_NLIMB; ++l) o[4 * TXF_NLIMB + l] = r[l];
 }
 
 static inline int grid_for(int n, int threads) {

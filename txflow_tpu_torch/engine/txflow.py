@@ -57,7 +57,7 @@ class _StepPrep:
 
     __slots__ = (
         "keys", "votes", "slots", "n_slots", "prior", "msgs", "sigs",
-        "val_idx", "dropped",
+        "val_idx", "dropped", "verifier",
     )
 
     def __init__(self):
@@ -70,6 +70,8 @@ class _StepPrep:
         self.sigs: list[bytes] = []
         self.val_idx = None
         self.dropped = 0
+        # the verifier of the set whose address->index map built val_idx
+        self.verifier = None
 
 
 class TxFlow:
@@ -98,15 +100,19 @@ class TxFlow:
         if verifier is not None:
             self.verifier = verifier
         elif self.config.use_device:
-            # no fallback: a device or build failure raises, a set whose
-            # total power overflows the int32 tally raises, and so does a
+            # no fallback: a device or build failure raises, and so does a
             # mesh of more cards than are visible (the JAX engine falls
-            # back to one device there)
+            # back to one device there); a set of total power >= 2^30 is
+            # tallied in int64 on the device (the JAX engine takes its
+            # host verifier there)
+            fe_radix = self.config.fe_radix
             if int(self.config.mesh_devices or 0) > 1:
                 mesh = make_mesh(int(self.config.mesh_devices), device=self.config.device)
-                self.verifier = DeviceVoteVerifier(val_set, mesh=mesh)
+                self.verifier = DeviceVoteVerifier(val_set, mesh=mesh, fe_radix=fe_radix)
             else:
-                self.verifier = DeviceVoteVerifier(val_set, device=self.config.device)
+                self.verifier = DeviceVoteVerifier(
+                    val_set, device=self.config.device, fe_radix=fe_radix
+                )
         else:
             self.verifier = ScalarVoteVerifier(val_set)
         self._addr_to_idx = {v.address: i for i, v in enumerate(val_set)}
@@ -207,7 +213,11 @@ class TxFlow:
                 if vs is not None:
                     prior[s] = vs.stake()
             prep.prior = prior
+            # this drain's set epoch: update_state swaps the map and the
+            # verifier together under _mtx, so the batch goes to the
+            # verifier that matches the indices it was built with
             addr_to_idx = self._addr_to_idx
+            prep.verifier = self.verifier
         prep.msgs = sign_bytes_many(votes, self.chain_id)
         prep.sigs = [v.signature or b"" for v in votes]
         prep.val_idx = np.array(
@@ -216,8 +226,9 @@ class TxFlow:
         return prep
 
     def _submit_prep(self, prep: "_StepPrep"):
-        """Hand the prepped batch to the verifier (launch; no readback)."""
-        return self.verifier.submit(
+        """Hand the prepped batch to the verifier captured at drain
+        (launch; no readback)."""
+        return prep.verifier.submit(
             prep.msgs, prep.sigs, prep.val_idx,
             np.array(prep.slots, np.int32), prep.n_slots,
             prior_stake=prep.prior,
@@ -405,10 +416,10 @@ class TxFlow:
         engine:
 
         1. the verifier restages in place (new tables on the card, same
-           shapes); a device verifier past its capacity is rebuilt on the
-           same device instead. A set whose total
-           power reaches 2^30 raises from the device verifier, as at
-           construction: the port has no host fallback for it.
+           shapes, its field kept, the tally's width chosen for the new
+           set's total power); a device verifier past its capacity is
+           rebuilt on the same device or mesh, over the same field,
+           instead. Only a total power of 2^62 or more raises.
         2. every in-flight TxVoteSet is re-evaluated against the new set
            (TxVoteSet.revalidate): votes of removed validators dropped,
            sums re-weighted, latched certificates untouched, and a set
@@ -429,9 +440,11 @@ class TxFlow:
             if restaged:
                 verifier = base
             elif base.mesh is not None:
-                verifier = DeviceVoteVerifier(val_set, mesh=base.mesh)
+                verifier = DeviceVoteVerifier(val_set, mesh=base.mesh, fe_radix=base.fe_radix)
             else:
-                verifier = DeviceVoteVerifier(val_set, device=base.device)
+                verifier = DeviceVoteVerifier(
+                    val_set, device=base.device, fe_radix=base.fe_radix
+                )
             self.height = height
             self.val_set = val_set
             self._addr_to_idx = {v.address: i for i, v in enumerate(val_set)}

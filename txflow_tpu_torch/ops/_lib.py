@@ -1,10 +1,12 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-Each source in ``csrc/`` with a C entry point becomes one shared library,
-compiled by ``nvcc`` for ``sm_90a`` into ``txflow_tpu_torch/_build/`` on
-first use (all sources at once, one ``nvcc`` process each, in parallel)
-and loaded with ctypes. Nothing here runs at import: the CPU tests import
-every module and never reach a build.
+Each library of ``LIBS`` is one source in ``csrc/`` with a C entry point,
+compiled by ``nvcc`` for ``sm_90a`` with the library's own flags into
+``txflow_tpu_torch/_build/`` on first use (all libraries at once, one
+``nvcc`` process each, in parallel) and loaded with ctypes. ``verify.cu``
+builds twice, once over each field: ``verify`` (radix 2^25.5) and
+``verify13`` (radix 2^13, ``-DTXF_FE_RADIX=13``). Nothing here runs at
+import: the CPU tests import every module and never reach a build.
 
 Every launch goes through :func:`launch`, which makes the tensors'
 card the current device, passes PyTorch's current stream there, raises
@@ -12,9 +14,10 @@ when the C entry point reports a CUDA error, and adds one to
 ``launches[kernel]`` -- the count that shows a run went through the
 kernel. A failed build or launch raises; there is no fallback.
 
-The verify library keeps the base-point table in ``__constant__`` memory,
-which each card holds separately: :func:`launch` copies it to a card
-before the first launch there.
+Each verify library keeps the base-point table of its field in
+``__constant__`` memory, which each card holds separately for each
+library: :func:`launch` copies it to a card before that library's first
+launch there.
 """
 
 from __future__ import annotations
@@ -39,39 +42,53 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# library -> (source, {C entry point: argtypes})
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# the C entry points of a verify library, built once for each field
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_VERIFY_FNS = {
+    "txf_set_base_table": [_P],
+    "txf_verify": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P],
+    "txf_verify_tables": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "txf_dsm_encode": [_P, _P, _P, _P, _I, _P, _P, _I, _P],
+    "txf_fe_ops": [_P, _P, _P, _I, _P],
+}
+
+# library -> (source, extra nvcc flags, {C entry point: argtypes}). One
+# source may build several libraries: verify.cu over each field.
 LIBS = {
-    "verify": (
-        "verify.cu",
-        {
-            "txf_set_base_table": [_P],
-            "txf_verify": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P],
-            "txf_verify_tables": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
-            "txf_dsm_encode": [_P, _P, _P, _P, _I, _P, _P, _I, _P],
-            "txf_fe_ops": [_P, _P, _P, _I, _P],
-        },
-    ),
+    "verify": ("verify.cu", [], _VERIFY_FNS),
+    "verify13": ("verify.cu", ["-DTXF_FE_RADIX=13"], _VERIFY_FNS),
     "tally": (
         "tally.cu",
+        [],
         {
             "txf_tally": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P],
+            "txf_tally64": [_P, _P, _P, _P, _I, _P, _L, _P, _P, _P, _I, _I, _P],
             "txf_tally_partial": [_P, _P, _P, _P, _I, _P, _I, _I, _P],
+            "txf_tally_partial64": [_P, _P, _P, _P, _I, _P, _I, _I, _P],
             "txf_reduce_quorum": [_P, _I, _P, _I, _P, _P, _I, _P],
+            "txf_reduce_quorum64": [_P, _I, _P, _L, _P, _P, _I, _P],
             "txf_add": [_P, _P, _P, _I, _P],
         },
     ),
 }
 
+# verify library -> the field (radix) of the base table in its
+# __constant__ memory
+BASE_TABLE_RADIX = {"verify": 25, "verify13": 13}
+
 # kernel -> library
 KERNELS = {"fe_ops": "verify", "dsm_encode": "verify", "verify": "verify",
-           "verify_tables": "verify", "tally": "tally",
-           "tally_partial": "tally", "reduce_quorum": "tally", "ring_add": "tally"}
+           "verify_tables": "verify", "fe13_ops": "verify13",
+           "dsm_encode13": "verify13", "verify13": "verify13",
+           "verify_tables13": "verify13", "tally": "tally", "tally64": "tally",
+           "tally_partial": "tally", "tally_partial64": "tally",
+           "reduce_quorum": "tally", "reduce_quorum64": "tally", "ring_add": "tally"}
 
 launches = {k: 0 for k in KERNELS}
 
 _loaded: dict[str, ctypes.CDLL] = {}
-_tabled: set[int] = set()  # cards whose __constant__ base table is set
+# (library, card) pairs whose __constant__ base table is set
+_tabled: set[tuple[str, int]] = set()
 _mtx = threading.Lock()
 
 
@@ -96,17 +113,17 @@ def _stale(name: str) -> bool:
 
 
 def build_all(force: bool = False) -> dict[str, float]:
-    """Compile every stale library, one nvcc per source, all started
+    """Compile every stale library, one nvcc per library, all started
     together. Returns seconds per library; raises on any failure."""
     BUILD.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     t0 = time.perf_counter()
-    for name, (src, _fns) in LIBS.items():
+    for name, (src, flags, _fns) in LIBS.items():
         if not force and not _stale(name):
             continue
         tmp = BUILD / f"lib{name}.{os.getpid()}.so"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp), str(CSRC / src)]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp)
@@ -137,28 +154,29 @@ def library(name: str) -> ctypes.CDLL:
         if _stale(name):
             build_all()
         lib = ctypes.CDLL(str(BUILD / f"lib{name}.so"))
-        for fn, argtypes in LIBS[name][1].items():
+        for fn, argtypes in LIBS[name][2].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         _loaded[name] = lib
         return lib
 
 
-def _set_base_table(lib: ctypes.CDLL, index: int) -> None:
-    """Copy the base-point table into the current card's ``__constant__``
-    memory, once per card."""
-    if index in _tabled:
+def _set_base_table(lib: ctypes.CDLL, name: str, index: int) -> None:
+    """Copy the base-point table of library ``name``'s field into the
+    current card's ``__constant__`` memory, once per (library, card)."""
+    key = (name, index)
+    if key in _tabled:
         return
     with _mtx:
-        if index in _tabled:
+        if key in _tabled:
             return
-        from .curve import BASE_TABLE
+        from .curve import BASE_TABLES
 
-        table = np.ascontiguousarray(BASE_TABLE, dtype=np.int32)
+        table = np.ascontiguousarray(BASE_TABLES[BASE_TABLE_RADIX[name]], dtype=np.int32)
         rc = lib.txf_set_base_table(table.ctypes.data)
         if rc != 0:
             raise RuntimeError(f"txf_set_base_table failed: CUDA error {rc}")
-        _tabled.add(index)
+        _tabled.add(key)
 
 
 def launch(kernel: str, fn: str, t, n: int, *args) -> None:
@@ -177,8 +195,8 @@ def launch(kernel: str, fn: str, t, n: int, *args) -> None:
     # switching cards costs host time on every launch: only when needed
     with (contextlib.nullcontext() if index == torch.cuda.current_device()
           else torch.cuda.device(index)):
-        if name == "verify":
-            _set_base_table(lib, index)
+        if name in BASE_TABLE_RADIX:
+            _set_base_table(lib, name, index)
         stream = torch.cuda.current_stream(t.device).cuda_stream
         rc = getattr(lib, fn)(*args, stream)
     if rc != 0:

@@ -7,7 +7,10 @@ Counterpart of ``txflow_tpu/ops/ed25519_batch.py``. The host does the
 byte work (S < L, SHA-512 mod L, nibbles, pubkey decompression and one
 window table of -A per validator per epoch); the device computes
 P = [S]B + [h](-A) and compares encode(P) with R. Decisions are
-bit-identical to ``crypto.ed25519.verify_pure``.
+bit-identical to ``crypto.ed25519.verify_pure``, over either field
+(``ops/field.py``): tables are built in the limbs of the epoch's field
+(``EpochTables(fe_radix=)``), and every verify function takes
+``fe_radix`` and launches the kernel of that field's verify library.
 """
 
 from __future__ import annotations
@@ -19,33 +22,38 @@ import torch
 
 from ..crypto import ed25519 as host_ed
 from .. import prep
-from . import _lib, curve, fe
+from . import _lib, curve, field
 
 
-def neg_pubkey_table(pub_key: bytes) -> tuple[np.ndarray, bool]:
-    """Window table [16, 4, 10] of -A for one pubkey; ok=False if the key
-    is off-curve (identity table; its votes are rejected by pre_ok)."""
+def neg_pubkey_table(pub_key: bytes, fe_radix: int = 25) -> tuple[np.ndarray, bool]:
+    """Window table [16, 4, NLIMB] of -A for one pubkey in the field's
+    limbs; ok=False if the key is off-curve (identity table; its votes are
+    rejected by pre_ok)."""
     A = host_ed.point_decompress(pub_key)
     if A is None:
-        return curve.build_pniels_table(host_ed.IDENTITY), False
-    return curve.build_pniels_table(host_ed.point_neg(A)), True
+        return curve.build_pniels_table(host_ed.IDENTITY, fe_radix), False
+    return curve.build_pniels_table(host_ed.point_neg(A), fe_radix), True
 
 
 class EpochTables:
-    """Per-validator-set-epoch constants: one -A table per validator,
-    uploaded to a device once by ``device_tables``."""
+    """Per-validator-set-epoch constants: one -A table per validator in
+    the limbs of the field ``fe_radix`` (25 or 13; None reads
+    ``TXFLOW_FE_RADIX`` now, see ``ops/field.py``), uploaded to a device
+    once by ``device_tables``."""
 
-    def __init__(self, pub_keys: list[bytes]):
+    def __init__(self, pub_keys: list[bytes], fe_radix: int | None = None):
+        self.fe_radix = field.resolve(fe_radix)
+        nlimb = field.ops(self.fe_radix).NLIMB
         tables, oks = [], []
         for pk in pub_keys:
-            t, ok = neg_pubkey_table(pk)
+            t, ok = neg_pubkey_table(pk, self.fe_radix)
             tables.append(t)
             oks.append(ok)
         self.pub_keys = list(pub_keys)
         self.tables = (
             np.stack(tables).astype(np.int32)
             if tables
-            else np.zeros((0, curve.TABLE_SIZE, 4, fe.NLIMB), np.int32)
+            else np.zeros((0, curve.TABLE_SIZE, 4, nlimb), np.int32)
         )
         self.key_ok = np.array(oks, dtype=bool)
         # [V, 32] key bytes for the per-vote hash; a malformed key length
@@ -63,7 +71,7 @@ class EpochTables:
         self._device_tables: dict[str, torch.Tensor] = {}
 
     def device_tables(self, device) -> torch.Tensor:
-        """The tables as an int32 [V, 16, 4, 10] tensor on ``device``,
+        """The tables as an int32 [V, 16, 4, NLIMB] tensor on ``device``,
         uploaded once per device and cached."""
         key = str(torch.device(device))
         t = self._device_tables.get(key)
@@ -111,7 +119,7 @@ class PreparedBatch:
 
     s_nibbles: np.ndarray  # [B, 64] uint8, MSB-first nibbles of S
     h_nibbles: np.ndarray  # [B, 64] uint8, MSB-first nibbles of h mod L
-    a_tables: np.ndarray  # [B, 16, 4, 10] int32 window table of -A per vote
+    a_tables: np.ndarray  # [B, 16, 4, NLIMB] int32 window table of -A per vote
     r_y: np.ndarray  # [B, 32] uint8 low 255 bits of sig[:32]
     r_sign: np.ndarray  # [B] uint8 bit 255 of sig[:32]
     pre_ok: np.ndarray  # [B] bool host pre-checks passed
@@ -125,69 +133,77 @@ def prepare_batch(
     msgs: list[bytes], sigs: list[bytes], val_idx: np.ndarray, epoch: EpochTables
 ) -> PreparedBatch:
     """Host prep for K5: the compact prep, then each vote's table gathered
-    from the epoch (an index outside the set clips into it; its pre_ok is
-    False already)."""
+    from the epoch, in the epoch's field (an index outside the set clips
+    into it; its pre_ok is False already)."""
     c = prepare_compact(msgs, sigs, val_idx, epoch)
     if len(epoch.pub_keys):
         a_tables = epoch.tables[c.val_idx]
     else:
-        a_tables = np.zeros((c.size, curve.TABLE_SIZE, 4, fe.NLIMB), np.int32)
+        a_tables = np.zeros((c.size,) + epoch.tables.shape[1:], np.int32)
     return PreparedBatch(c.s_nibbles, c.h_nibbles, a_tables, c.r_y, c.r_sign, c.pre_ok)
 
 
-def _match_r(y, parity, r_y, r_sign):
+def _match_r(y, parity, r_y, r_sign, fe_radix: int = 25):
     """encode(P) == R on raw bytes: y limbs equal the low 255 bits exactly
     (a non-canonical R never matches) and the sign bit agrees."""
-    return fe.fe_equal(y.to(torch.int64), fe.fe_from_bytes(r_y)) & (
+    F = field.ops(fe_radix)
+    return F.fe_equal(y.to(F.DTYPE), F.fe_from_bytes(r_y)) & (
         parity == r_sign.to(torch.int32)
     )
 
 
-def verify_kernel_plain(s_nibbles, h_nibbles, a_tables, r_y, r_sign, pre_ok):
+def verify_kernel_plain(s_nibbles, h_nibbles, a_tables, r_y, r_sign, pre_ok,
+                        fe_radix: int = 25):
     """Plain version of the K5 kernel: bool [B] over per-vote tables
-    (int32 [B, 16, 4, 10]); only the rows whose host pre-checks passed are
-    computed, as in the kernel."""
+    (int32 [B, 16, 4, NLIMB]); only the rows whose host pre-checks passed
+    are computed, as in the kernel."""
     pre_ok = pre_ok.to(torch.bool)
     rows = pre_ok.nonzero().squeeze(-1)
     out = torch.zeros_like(pre_ok)
     if rows.numel() == 0:  # padding only: nothing to compute
         return out
-    base_table = torch.from_numpy(curve.BASE_TABLE).to(a_tables.device)
     y, parity = curve.ext_encode(
         curve.double_scalar_mul(
-            s_nibbles[rows], h_nibbles[rows], base_table, a_tables[rows]
-        )
+            s_nibbles[rows], h_nibbles[rows], curve.base_table(a_tables.device, fe_radix),
+            a_tables[rows], fe_radix,
+        ),
+        fe_radix,
     )
-    out[rows] = _match_r(y, parity.to(torch.int32), r_y[rows], r_sign[rows])
+    out[rows] = _match_r(y, parity.to(torch.int32), r_y[rows], r_sign[rows], fe_radix)
     return out
 
 
-def verify_kernel(s_nibbles, h_nibbles, a_tables, r_y, r_sign, pre_ok) -> torch.Tensor:
+def verify_kernel(s_nibbles, h_nibbles, a_tables, r_y, r_sign, pre_ok,
+                  fe_radix: int = 25) -> torch.Tensor:
     """K5: bool [B] of Go-equivalent signature validity, each vote checked
-    against its own gathered -A table (int32 [B, 16, 4, 10]). The CUDA
-    kernel runs for CUDA tensors; CPU tensors take the plain version."""
+    against its own gathered -A table (int32 [B, 16, 4, NLIMB] of the
+    ``fe_radix`` field). The CUDA kernel runs for CUDA tensors; CPU
+    tensors take the plain version."""
     if s_nibbles.device.type == "cpu":
-        return verify_kernel_plain(s_nibbles, h_nibbles, a_tables, r_y, r_sign, pre_ok)
+        return verify_kernel_plain(s_nibbles, h_nibbles, a_tables, r_y, r_sign, pre_ok,
+                                   fe_radix)
+    F = field.ops(fe_radix)
     n = s_nibbles.shape[0]
     _lib.check(s_nibbles, torch.uint8, (n, curve.NWINDOWS), "s_nibbles")
     _lib.check(h_nibbles, torch.uint8, (n, curve.NWINDOWS), "h_nibbles")
-    _lib.check(a_tables, torch.int32, (n, curve.TABLE_SIZE, 4, fe.NLIMB), "a_tables")
+    _lib.check(a_tables, torch.int32, (n, curve.TABLE_SIZE, 4, F.NLIMB), "a_tables")
     _lib.check(r_y, torch.uint8, (n, 32), "r_y")
     _lib.check(r_sign, torch.uint8, (n,), "r_sign")
     _lib.check(pre_ok, torch.bool, (n,), "pre_ok")
     _lib.same_card(s_nibbles, h_nibbles, a_tables, r_y, r_sign, pre_ok)
     out = torch.empty((n,), dtype=torch.int32, device=s_nibbles.device)
     _lib.launch(
-        "verify_tables", "txf_verify_tables", out, n, s_nibbles.data_ptr(),
+        "verify_tables" + F.TAG, "txf_verify_tables", out, n, s_nibbles.data_ptr(),
         h_nibbles.data_ptr(), a_tables.data_ptr(), r_y.data_ptr(),
         r_sign.data_ptr(), pre_ok.data_ptr(), out.data_ptr(), n,
     )
     return out.to(torch.bool)
 
 
-def verify_batch(batch: PreparedBatch, device=None) -> np.ndarray:
-    """Host API: prepared batch -> bool [B] validity by K5 on ``device``
-    (CUDA unless the caller asks for the CPU)."""
+def verify_batch(batch: PreparedBatch, device=None, fe_radix: int = 25) -> np.ndarray:
+    """Host API: prepared batch (tables in the ``fe_radix`` field) -> bool
+    [B] validity by K5 on ``device`` (CUDA unless the caller asks for the
+    CPU)."""
     from ..verifier import resolve_device
 
     dev = resolve_device(device)
@@ -197,12 +213,12 @@ def verify_batch(batch: PreparedBatch, device=None) -> np.ndarray:
 
     return verify_kernel(
         T(batch.s_nibbles), T(batch.h_nibbles), T(batch.a_tables),
-        T(batch.r_y), T(batch.r_sign), T(batch.pre_ok),
+        T(batch.r_y), T(batch.r_sign), T(batch.pre_ok), fe_radix=fe_radix,
     ).cpu().numpy()
 
 
 def verify_kernel_gather_plain(
-    s_nibbles, h_nibbles, val_idx, tables, r_y, r_sign, pre_ok
+    s_nibbles, h_nibbles, val_idx, tables, r_y, r_sign, pre_ok, fe_radix: int = 25
 ) -> torch.Tensor:
     """Plain version of the verify kernel: bool [B]. Like the kernel, it
     computes only the rows whose host pre-checks passed."""
@@ -212,18 +228,18 @@ def verify_kernel_gather_plain(
     if rows.numel() == 0:  # padding only: nothing to compute
         return out
     y, parity = curve.dsm_encode_plain(
-        s_nibbles[rows], h_nibbles[rows], val_idx[rows], tables
+        s_nibbles[rows], h_nibbles[rows], val_idx[rows], tables, fe_radix=fe_radix
     )
-    out[rows] = _match_r(y, parity, r_y[rows], r_sign[rows])
+    out[rows] = _match_r(y, parity, r_y[rows], r_sign[rows], fe_radix)
     return out
 
 
-def _check_batch(s_nibbles, h_nibbles, val_idx, tables, r_y, r_sign, pre_ok):
+def _check_batch(s_nibbles, h_nibbles, val_idx, tables, r_y, r_sign, pre_ok, nlimb):
     n = s_nibbles.shape[0]
     _lib.check(s_nibbles, torch.uint8, (n, curve.NWINDOWS), "s_nibbles")
     _lib.check(h_nibbles, torch.uint8, (n, curve.NWINDOWS), "h_nibbles")
     _lib.check(val_idx, torch.int32, (n,), "val_idx")
-    _lib.check(tables, torch.int32, (-1, curve.TABLE_SIZE, 4, fe.NLIMB), "tables")
+    _lib.check(tables, torch.int32, (-1, curve.TABLE_SIZE, 4, nlimb), "tables")
     _lib.check(r_y, torch.uint8, (n, 32), "r_y")
     _lib.check(r_sign, torch.uint8, (n,), "r_sign")
     _lib.check(pre_ok, torch.bool, (n,), "pre_ok")
@@ -232,38 +248,44 @@ def _check_batch(s_nibbles, h_nibbles, val_idx, tables, r_y, r_sign, pre_ok):
         raise ValueError("tables: empty validator set")
 
 
-def verify_into(out, s_nibbles, h_nibbles, val_idx, tables, r_y, r_sign, pre_ok):
-    """Launch the CUDA verify kernel writing int32 0/1 validity into
-    ``out`` (an int32 [B] CUDA tensor, e.g. the head of the packed
-    readback)."""
-    _check_batch(s_nibbles, h_nibbles, val_idx, tables, r_y, r_sign, pre_ok)
+def verify_into(out, s_nibbles, h_nibbles, val_idx, tables, r_y, r_sign, pre_ok,
+                fe_radix: int = 25):
+    """Launch the CUDA verify kernel of the ``fe_radix`` field's library
+    writing int32 0/1 validity into ``out`` (an int32 [B] CUDA tensor,
+    e.g. the head of the packed readback)."""
+    F = field.ops(fe_radix)
+    _check_batch(s_nibbles, h_nibbles, val_idx, tables, r_y, r_sign, pre_ok, F.NLIMB)
     _lib.check(out, torch.int32, (s_nibbles.shape[0],), "out")
     _lib.same_card(out, s_nibbles)
     n = s_nibbles.shape[0]
     _lib.launch(
-        "verify", "txf_verify", out, n, s_nibbles.data_ptr(), h_nibbles.data_ptr(),
+        "verify" + F.TAG, "txf_verify", out, n, s_nibbles.data_ptr(), h_nibbles.data_ptr(),
         val_idx.data_ptr(), tables.data_ptr(), tables.shape[0], r_y.data_ptr(),
         r_sign.data_ptr(), pre_ok.data_ptr(), out.data_ptr(), n,
     )
 
 
 def verify_kernel_gather(
-    s_nibbles, h_nibbles, val_idx, tables, r_y, r_sign, pre_ok
+    s_nibbles, h_nibbles, val_idx, tables, r_y, r_sign, pre_ok, fe_radix: int = 25
 ) -> torch.Tensor:
     """bool [B] of Go-equivalent signature validity over device-resident
-    epoch tables (int32 [V, 16, 4, 10]). The CUDA kernel runs for CUDA
-    tensors; CPU tensors take the plain version."""
+    epoch tables (int32 [V, 16, 4, NLIMB] of the ``fe_radix`` field). The
+    CUDA kernel runs for CUDA tensors; CPU tensors take the plain
+    version."""
     if s_nibbles.device.type == "cpu":
         return verify_kernel_gather_plain(
-            s_nibbles, h_nibbles, val_idx, tables, r_y, r_sign, pre_ok
+            s_nibbles, h_nibbles, val_idx, tables, r_y, r_sign, pre_ok, fe_radix
         )
     out = torch.empty(
         (s_nibbles.shape[0],), dtype=torch.int32, device=s_nibbles.device
     )
-    verify_into(out, s_nibbles, h_nibbles, val_idx, tables, r_y, r_sign, pre_ok)
+    verify_into(out, s_nibbles, h_nibbles, val_idx, tables, r_y, r_sign, pre_ok,
+                fe_radix=fe_radix)
     return out.to(torch.bool)
 
 
-# integer multiply-adds a verify kernel (K3 or K5) spends on one signature that passed the
-# host pre-checks (rows that failed them return at once)
-MADS_PER_SIGNATURE = curve.MULS_PER_DSM_ENCODE * fe.MADS_PER_MUL
+def mads_per_signature(fe_radix: int = 25) -> int:
+    """Integer multiply-adds a verify kernel (K3 or K5) of the field spends
+    on one signature that passed the host pre-checks (rows that failed
+    them return at once)."""
+    return curve.MULS_PER_DSM_ENCODE * field.ops(fe_radix).MADS_PER_MUL

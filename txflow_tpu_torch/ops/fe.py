@@ -22,7 +22,10 @@ import torch
 
 from . import _lib
 
+FE_RADIX = 25  # the name of this field in ``fe_radix`` arguments
+TAG = ""  # suffix of this field's kernels in ``_lib.KERNELS``
 NLIMB = 10
+DTYPE = torch.int64  # the plain version's limb type
 W = np.array([26, 25] * 5, dtype=np.int64)
 OFF = np.array([(i >> 1) * 51 + (26 if i & 1 else 0) for i in range(NLIMB)])
 MASK = (1 << W) - 1

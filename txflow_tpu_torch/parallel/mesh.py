@@ -16,6 +16,10 @@ stream waits on an event recorded on the producing card's stream after
 the kernel that wrote the tensor. Shards on one device share its stream
 and need no event. A mesh of CPU entries runs the plain versions.
 
+Each step is built over one field (``fe_radix``, ``ops/field.py``) and
+runs the int64 forms of the tally kernels when it is given int64 powers
+and prior (a set of total power >= 2^30).
+
 Results stay per shard, as lists of tensors (``to_host`` joins one into
 the layout the JAX package's host sees): the packed step gives per shard
 ``[valid (B/n) | stake (S) | maj23 (S)]``, seen as ``[B + 2Sn]``; the ring
@@ -28,7 +32,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..ops import ed25519_batch, tally
+from ..ops import ed25519_batch, field, tally
 
 VOTE_AXIS = "votes"
 
@@ -128,15 +132,16 @@ def _peer(t, device):
 
 
 def psum_quorum(mesh: Mesh, partials: list, priors: list, quorum: int, outs=None):
-    """All-reduce of per-shard partial stake [S] plus the prior, and the
-    quorum compare, on every shard: shard i copies every partial into an
-    [n, S] buffer on its device and runs ``reduce_quorum`` there. ``outs``
-    gives per shard the (stake, maj23) destinations, e.g. the segments of
-    its packed output. Returns (stakes, majs), per-shard lists."""
+    """All-reduce of per-shard partial stake [S] (int32, or int64 for a
+    set of total power >= 2^30) plus the prior, and the quorum compare, on
+    every shard: shard i copies every partial into an [n, S] buffer on its
+    device and runs ``reduce_quorum`` there. ``outs`` gives per shard the
+    (stake, maj23) destinations, e.g. the segments of its packed output.
+    Returns (stakes, majs), per-shard lists."""
     n, s = mesh.size, partials[0].shape[0]
     stakes, majs = [], []
     for i, dev in enumerate(mesh.devices):
-        parts = torch.empty((n, s), dtype=torch.int32, device=dev)
+        parts = torch.empty((n, s), dtype=partials[0].dtype, device=dev)
         for j, p in enumerate(partials):
             _after_producer(p, dev)
             parts[j].copy_(p, non_blocking=True)
@@ -161,76 +166,87 @@ def ring_tally(mesh: Mesh, partials: list) -> list:
     return totals
 
 
-def _step_partials(mesh, s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot,
+def _step_partials(mesh, fe_radix, s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot,
                    tables, powers, prior_stake):
     """Shard the per-vote inputs, replicate the constants, and run each
-    shard's verify + partial tally. Returns (packed, partials, priors),
-    per-shard lists; every host->device copy is issued before any launch."""
+    shard's verify (over the ``fe_radix`` field) + partial tally. Returns
+    (packed, partials, priors), per-shard lists; every host->device copy
+    is issued before any launch."""
     vote = [mesh.shard(x) for x in (s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot)]
     tables, powers, priors = (mesh.replicate(x) for x in (tables, powers, prior_stake))
     s = priors[0].shape[0]
     packed, partials = [], []
     for i in range(mesh.size):
         p, part = tally.compact_step_partial(
-            *(v[i] for v in vote), tables[i], powers[i], s
+            *(v[i] for v in vote), tables[i], powers[i], s, fe_radix=fe_radix
         )
         packed.append(p)
         partials.append(part)
     return packed, partials, priors
 
 
-def sharded_compact_step_packed(mesh: Mesh):
-    """The fused step sharded over ``mesh`` with the psum tally.
+def sharded_compact_step_packed(mesh: Mesh, fe_radix: int | None = None):
+    """The fused step sharded over ``mesh`` with the psum tally, its
+    verify over the ``fe_radix`` field (25 or 13; None reads
+    ``TXFLOW_FE_RADIX`` now, see ``ops/field.py``).
 
     f(s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables, powers,
     prior_stake, quorum) -> per-shard packed int32 ``[B/n + 2S]``
-    (``to_host`` gives ``[B + 2Sn]``). Per-vote inputs are full-batch
-    tensors (B divisible by n) or per-shard lists; tables, powers and
-    prior are tensors to replicate or per-shard lists."""
+    (``to_host`` gives ``[B + 2Sn]``), or ``[B/n + 3S]`` in the int64
+    form that int64 powers and prior select (``ops.tally.packed_stake``).
+    Per-vote inputs are full-batch tensors (B divisible by n) or per-shard
+    lists; tables, powers and prior are tensors to replicate or per-shard
+    lists."""
+    fe_radix = field.resolve(fe_radix)
 
     def f(s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables, powers,
           prior_stake, quorum):
         packed, partials, priors = _step_partials(
-            mesh, s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables,
+            mesh, fe_radix, s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables,
             powers, prior_stake,
         )
         s = priors[0].shape[0]
-        bs = packed[0].shape[0] - 2 * s
+        sw = 2 * s if tally.is_wide(powers) else s
+        bs = packed[0].shape[0] - sw - s
         psum_quorum(mesh, partials, priors, quorum,
-                    outs=[(p[bs : bs + s], p[bs + s :]) for p in packed])
+                    outs=[(p[bs : bs + sw], p[bs + sw :]) for p in packed])
         return packed
 
     return f
 
 
-def sharded_compact_step(mesh: Mesh):
+def sharded_compact_step(mesh: Mesh, fe_radix: int | None = None):
     """The sharded step's three results unpacked: f(...) -> (valid bool
-    per shard [B/n], stake int32 [S] per shard, maj23 bool [S] per shard),
-    the stake and maj23 lists holding the same global values."""
-    packed_fn = sharded_compact_step_packed(mesh)
+    per shard [B/n], stake [S] per shard (int32, or int64 in the wide
+    form), maj23 bool [S] per shard), the stake and maj23 lists holding
+    the same global values."""
+    packed_fn = sharded_compact_step_packed(mesh, fe_radix)
 
     def f(*args):
         packed = packed_fn(*args)
-        prior = args[9]
+        prior, wide = args[9], tally.is_wide(args[8])
         s = (prior[0] if isinstance(prior, (list, tuple)) else prior).shape[0]
-        bs = packed[0].shape[0] - 2 * s
-        return ([p[:bs].to(torch.bool) for p in packed], [p[bs : bs + s] for p in packed],
-                [p[bs + s :].to(torch.bool) for p in packed])
+        bs = packed[0].shape[0] - tally.packed_size(0, s, wide)
+        unpacked = [tally.packed_stake(p, bs, s, wide) for p in packed]
+        return ([p[:bs].to(torch.bool) for p in packed], [st for st, _ in unpacked],
+                [mj.to(torch.bool) for _, mj in unpacked])
 
     return f
 
 
-def sharded_ring_step(mesh: Mesh):
+def sharded_ring_step(mesh: Mesh, fe_radix: int | None = None):
     """The fused step sharded over ``mesh`` with ``ring_tally`` in place of
-    the psum: f(...) -> (valid bool per shard, stake int32 [S] per shard,
-    maj23 bool [S] per shard), each shard holding its own copy of the
-    global stake and maj23 (``to_host`` gives ``[n·S]``, as the JAX ring
-    step's per-shard outputs)."""
+    the psum (int32 only: the ring hop has no int64 kernel): f(...) ->
+    (valid bool per shard, stake int32 [S] per shard, maj23 bool [S] per
+    shard), each shard holding its own copy of the global stake and maj23
+    (``to_host`` gives ``[n·S]``, as the JAX ring step's per-shard
+    outputs)."""
+    fe_radix = field.resolve(fe_radix)
 
     def f(s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables, powers,
           prior_stake, quorum):
         packed, partials, priors = _step_partials(
-            mesh, s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables,
+            mesh, fe_radix, s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables,
             powers, prior_stake,
         )
         s = priors[0].shape[0]
@@ -244,9 +260,14 @@ def sharded_ring_step(mesh: Mesh):
     return f
 
 
-def sharded_verify_and_tally(mesh: Mesh):
-    """The gathered-table verify (K5) composed with the tally over
-    ``mesh``: f(verify_inputs, tx_slot, power, prior_stake, quorum) ->
-    (valid per shard, stake per shard, maj23 per shard); see
-    ``ops.tally.verify_and_tally``."""
-    return tally.verify_and_tally(ed25519_batch.verify_kernel, mesh=mesh)
+def sharded_verify_and_tally(mesh: Mesh, fe_radix: int | None = None):
+    """The gathered-table verify (K5, over the ``fe_radix`` field)
+    composed with the tally over ``mesh``: f(verify_inputs, tx_slot,
+    power, prior_stake, quorum) -> (valid per shard, stake per shard,
+    maj23 per shard); see ``ops.tally.verify_and_tally``."""
+    fe_radix = field.resolve(fe_radix)
+
+    def verify(*inputs):
+        return ed25519_batch.verify_kernel(*inputs, fe_radix=fe_radix)
+
+    return tally.verify_and_tally(verify, mesh=mesh)

@@ -25,6 +25,7 @@ import hashlib
 import numpy as np
 
 from ..committee import BatchCertVerifier
+from ..ops import field
 from ..store.tx_store import _decode_votes
 from ..types import TxVoteSet
 from ..types.tx_vote import sign_bytes_many
@@ -56,6 +57,7 @@ class SyncManager:
         config: SyncConfig | None = None,
         committee=None,  # committee.CommitteeSchedule | None (full-set mode)
         device=None,
+        fe_radix: int | None = None,
     ):
         self.chain_id = chain_id
         self.tx_store = tx_store
@@ -66,6 +68,9 @@ class SyncManager:
         # where committee-mode certificate batches verify: CUDA unless the
         # caller asks for the CPU
         self.device = resolve_device(device)
+        # the field of those batches' verify kernel (ops/field.py; None
+        # reads TXFLOW_FE_RADIX now)
+        self.fe_radix = field.resolve(fe_radix)
         self._verifiers: dict[tuple, ScalarVoteVerifier] = {}
         # height -> the set the client trusts there: state-store records
         # plus sets learned through endorsement
@@ -137,7 +142,9 @@ class SyncManager:
                 self._verifiers.clear()
             if self.committee is not None:
                 # committee mode: one K6 launch per val-set group
-                v = self._verifiers[fp] = BatchCertVerifier(vals, device=self.device)
+                v = self._verifiers[fp] = BatchCertVerifier(
+                    vals, device=self.device, fe_radix=self.fe_radix
+                )
             else:
                 v = self._verifiers[fp] = ScalarVoteVerifier(vals)
         return v

@@ -38,3 +38,7 @@ class EngineConfig:
     # driving them all. 0 or 1 = one device. Fewer visible cards than N
     # raises: the engine never runs on fewer cards than asked for.
     mesh_devices: int = 0
+    # the field the verify kernels run over (ops/field.py): 25 = radix
+    # 2^25.5, 13 = radix 2^13 (K8); None reads TXFLOW_FE_RADIX when the
+    # engine builds its verifier. Rotations keep the verifier's field.
+    fe_radix: int | None = None

@@ -25,13 +25,19 @@ import numpy as np
 import torch
 
 from .crypto import ed25519 as host_ed
-from .ops import ed25519_batch, tally
+from .ops import ed25519_batch, field, tally
 from .parallel.mesh import Mesh, sharded_compact_step_packed, to_host
 from .types.validator import ValidatorSet
 
 # Batch-size buckets: padding to the next bucket keeps the set of batch
 # shapes small and bounded (one launch configuration per rung).
 DEFAULT_BUCKETS = (64, 256, 1024, 4096, 16384, 65536)
+
+# Total voting power from which the device tally runs in int64 (below it,
+# prior + batch stake of a slot stays under 2^31 in int32), and the bound
+# past which even an int64 sum of prior + batch stake could overflow.
+WIDE_TALLY_POWER = 2**30
+MAX_TOTAL_POWER = 2**62
 
 
 def bucket_size(n: int, buckets=DEFAULT_BUCKETS, multiple: int = 1) -> int:
@@ -94,17 +100,18 @@ class ReadyTicket(VerifyTicket):
 class _FusedDeviceTicket(VerifyTicket):
     """Dispatched fused step: one readback of each shard's packed
     ``[valid (b/n) | stake | maj23]`` vector at result() (one shard on a
-    single device)."""
+    single device; the stake segment int64 words when ``wide``)."""
 
-    __slots__ = ("_parts", "_n", "_n_slots", "_b", "_b_slots", "_keep", "_done")
+    __slots__ = ("_parts", "_n", "_n_slots", "_b", "_b_slots", "_keep", "_wide", "_done")
 
-    def __init__(self, parts, n, n_slots, b, b_slots, keep):
+    def __init__(self, parts, n, n_slots, b, b_slots, keep, wide):
         self._parts = parts  # per-shard device tensors, not yet read back
         self._n = n
         self._n_slots = n_slots
         self._b = b
         self._b_slots = b_slots
         self._keep = keep
+        self._wide = wide
         self._done: TallyResult | None = None
 
     def result(self) -> TallyResult:
@@ -114,13 +121,13 @@ class _FusedDeviceTicket(VerifyTicket):
         rows = to_host(self._parts).numpy().reshape(len(self._parts), -1)
         self._parts = None
         bs = self._b // rows.shape[0]
-        s = self._b_slots
         # valid from every shard; stake and maj23 from shard 0 (each
         # shard holds the same global tally)
+        stake, maj = tally.packed_stake(rows[0], bs, self._b_slots, self._wide)
         self._done = TallyResult(
             rows[:, :bs].reshape(-1)[: self._n].astype(bool),
-            rows[0, bs : bs + self._n_slots].astype(np.int64),
-            rows[0, bs + s : bs + s + self._n_slots].astype(bool),
+            stake[: self._n_slots].astype(np.int64),
+            maj[: self._n_slots].astype(bool),
             ~self._keep,
         )
         return self._done
@@ -240,7 +247,7 @@ class _DeviceStage:
     padded to the verifier's validator capacity. On a mesh, the device
     tables and powers are per-shard lists, one copy on each card."""
 
-    __slots__ = ("val_set", "pub_keys", "epoch", "powers", "tables_dev", "powers_dev")
+    __slots__ = ("val_set", "pub_keys", "epoch", "powers", "tables_dev", "powers_dev", "wide")
 
     def __init__(self, val_set, pub_keys, epoch, powers, tables_dev, powers_dev):
         self.val_set = val_set
@@ -249,6 +256,8 @@ class _DeviceStage:
         self.powers = powers
         self.tables_dev = tables_dev
         self.powers_dev = powers_dev
+        # the int64 tally: powers (and so prior and stake) are int64
+        self.wide = powers.dtype == np.int64
 
 
 class DeviceVoteVerifier:
@@ -260,17 +269,26 @@ class DeviceVoteVerifier:
     so ``restage()`` swaps them for a new set with host->device copies and
     nothing rebuilt. With a mesh of n shards every padded batch is a
     multiple of n and splits evenly over the shards.
+
+    ``fe_radix`` picks the field the verify kernel runs over (25 or 13,
+    see ``ops/field.py``; None reads ``TXFLOW_FE_RADIX`` here, once); a
+    restage keeps it. A set of total power >= 2^30 is tallied in int64
+    (``ops/tally.py``), a smaller one in int32, chosen per stage; only a
+    total >= 2^62 raises.
     """
 
-    def __init__(self, val_set: ValidatorSet, device=None, mesh: Mesh | None = None):
+    def __init__(self, val_set: ValidatorSet, device=None, mesh: Mesh | None = None,
+                 fe_radix: int | None = None):
         if mesh is not None:
             if device is not None:
                 raise ValueError("pass a device or a mesh, not both")
             resolve_device(mesh.devices[0])
         self.mesh = mesh
+        self.fe_radix = field.resolve(fe_radix)
         self._n_shards = 1 if mesh is None else mesh.size
         self.device = resolve_device(device) if mesh is None else mesh.devices[0]
-        self._step = None if mesh is None else sharded_compact_step_packed(mesh)
+        self._step = (None if mesh is None
+                      else sharded_compact_step_packed(mesh, fe_radix=self.fe_radix))
         # the engine must not drain batches beyond the largest bucket
         self.max_batch = max(DEFAULT_BUCKETS)
         self.capacity = _next_pow2(max(val_set.size(), 4))
@@ -285,14 +303,15 @@ class DeviceVoteVerifier:
         return self._stage.epoch
 
     def _build_stage(self, val_set: ValidatorSet) -> _DeviceStage:
-        # int32 device tally: with dedup, per-slot batch stake and prior
-        # stake are each <= total power, so their sum stays < 2^31 only if
-        # total power < 2^30. Larger sets take the scalar (int64) path.
-        if val_set.total_voting_power() >= 2**30:
+        # with dedup, per-slot batch stake and prior stake are each <=
+        # total power: their sum stays < 2^31 (int32) below 2^30 and
+        # < 2^63 (int64) below 2^62
+        total = val_set.total_voting_power()
+        if total >= MAX_TOTAL_POWER:
             raise ValueError(
-                "total voting power >= 2^30: use ScalarVoteVerifier "
-                "(device tally is int32)"
+                "total voting power >= 2^62: the int64 device tally could overflow"
             )
+        wide = total >= WIDE_TALLY_POWER
         pub_keys = [v.pub_key for v in val_set]
         pad = self.capacity - len(pub_keys)
         if pad < 0:
@@ -303,9 +322,9 @@ class DeviceVoteVerifier:
         # pad rows carry power 0 and an all-zero pubkey (no known private
         # key), and the engine's address->index map never yields a pad
         # index: a vote can neither verify against nor draw stake from them
-        epoch = ed25519_batch.EpochTables(pub_keys + [b"\x00" * 32] * pad)
-        powers = np.zeros(self.capacity, np.int32)
-        powers[: len(pub_keys)] = val_set.powers_array().astype(np.int32)
+        epoch = ed25519_batch.EpochTables(pub_keys + [b"\x00" * 32] * pad, self.fe_radix)
+        powers = np.zeros(self.capacity, np.int64 if wide else np.int32)
+        powers[: len(pub_keys)] = val_set.powers_array()
         if self.mesh is None:
             tables_dev = epoch.device_tables(self.device)
             powers_dev = torch.from_numpy(powers).to(self.device)
@@ -317,8 +336,9 @@ class DeviceVoteVerifier:
 
     def restage(self, new_val_set: ValidatorSet) -> bool:
         """Swap the per-epoch device constants for a new validator set in
-        place. Returns False when the set exceeds ``capacity`` (the caller
-        builds a fresh verifier); raises on the int32 tally cap."""
+        place, in this verifier's field, the tally's width chosen for the
+        new set. Returns False when the set exceeds ``capacity`` (the
+        caller builds a fresh verifier); raises past the int64 bound."""
         if new_val_set.size() > self.capacity:
             return False
         if new_val_set.hash() == self._stage.val_set.hash():
@@ -367,9 +387,9 @@ class DeviceVoteVerifier:
         pad = b - n
         slot = np.full(b, -1, np.int32)
         slot[:n] = tx_slot
-        prior = np.zeros(b_slots, np.int32)
+        prior = np.zeros(b_slots, np.int64 if st.wide else np.int32)
         if prior_stake is not None:
-            prior[:n_slots] = np.asarray(prior_stake, dtype=np.int32)
+            prior[:n_slots] = np.asarray(prior_stake, dtype=np.int64)
         q = st.val_set.quorum_power() if quorum is None else quorum
 
         if self.mesh is None:
@@ -392,10 +412,10 @@ class DeviceVoteVerifier:
             int(q),
         )
         if self.mesh is None:
-            parts = [tally.compact_step_packed(*args)]
+            parts = [tally.compact_step_packed(*args, fe_radix=self.fe_radix)]
         else:
             parts = self._step(*args)
-        return _FusedDeviceTicket(parts, n, n_slots, b, b_slots, keep)
+        return _FusedDeviceTicket(parts, n, n_slots, b, b_slots, keep, st.wide)
 
 
 def _pad(a: np.ndarray, pad: int) -> np.ndarray:
