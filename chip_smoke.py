@@ -78,6 +78,18 @@
    4-shard one, txf_tally_partial64 + txf_reduce_quorum64, equal to
    ScalarVoteVerifier), the int64 kernels held bit-exact and timed.
 
+7. The four-lane txf_verify (K3, and K6's launch), between phases 2 and
+   3: held bit-exact against its plain version in both fields at 8, 64,
+   1000, 1024 and 16384 rows of the K3 batch, each rung holding rows that
+   failed their pre-checks, an off-curve key's row with its pre-check
+   forced true (identity tables), R = 1 and the non-canonical R = p + 1,
+   and rows with an all-zero scalar quarter; then an A/B in turns of K3
+   against K5's one-lane body over the same 16384 rows (tables gathered
+   for K5) in both fields, beside both kernels' ptxas registers; in phase
+   4 an A/B of K6 at rung 8 against K5 on the same 8 rows; in phase 5 the
+   in-place ring hop (txf_add) and torch.add in turns, 500 launches a
+   window, and the host launch path split into its pieces.
+
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0), and
 without CUDA the script exits 1 before printing any result.
@@ -89,6 +101,9 @@ plain version on the CPU and K3 also against the golden model.
 
 ``--mesh`` runs only phase 5 and its kernel rows, over 4 distinct cards:
 the engine builds its own mesh from mesh_devices=4 (make_mesh).
+
+Parent-against-this comparisons (the small kernels' launch times, every
+phase's certificates and app digests) are txflow_tpu_torch/parent_ab.py.
 """
 
 from __future__ import annotations
@@ -152,6 +167,11 @@ MESH_SLOTS = 4096
 # byzantine votes of a tx's 64: mean 8.2 (1/8); 24 or 28 leave it below quorum
 MESH_BYZ = (0, 4, 8, 12, 24, 28)
 MESH_BYZ_P = (0.25, 0.25, 0.2, 0.15, 0.1, 0.05)
+# txf_verify's rows (K3, K6): one counted launch of the wrapper is two
+# kernel launches, txf_verify_kernel then txf_verify_encode_kernel; the
+# row's ms covers both
+VERIFY_LAUNCH_NOTE = {"kernel_launches_per_count": 2,
+                      "launch_note": "one counted launch = txf_verify_kernel + txf_verify_encode_kernel"}
 # published HBM rates (NVIDIA data sheets); SXM is the default
 HBM_BYTES_PER_S = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
 
@@ -365,6 +385,7 @@ def kernel_phase(card: dict, corpus: Corpus, dev) -> tuple[list[dict], dict]:
     pubs = [v.pub_key for v in corpus.val_set]
     epoch = ed25519_batch.EpochTables(pubs + [BAD_PUB] + [bytes(32)] * 15, fe_radix=25)
     tables = epoch.device_tables(dev)
+    quarters = epoch.device_quarter_tables(dev)
     powers = np.zeros(32, np.int32)
     powers[:N_VALS] = corpus.powers
 
@@ -443,7 +464,7 @@ def kernel_phase(card: dict, corpus: Corpus, dev) -> tuple[list[dict], dict]:
     def T(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
-    args = (T(s_n), T(h_n), T(v_i), tables, T(r_y), T(r_s), T(ok))
+    args = (T(s_n), T(h_n), T(v_i), tables, quarters, T(r_y), T(r_s), T(ok))
     slot_t, prior_t, powers_t = T(slot), T(prior), T(powers)
     k3 = ed25519_batch.verify_kernel_gather(*args)
     p3 = ed25519_batch.verify_kernel_gather_plain(*args)
@@ -463,19 +484,20 @@ def kernel_phase(card: dict, corpus: Corpus, dev) -> tuple[list[dict], dict]:
     n_ok = int(ok.sum())
     ms = cuda_ms_window(lambda: ed25519_batch.verify_kernel_gather(*args), 10)
     pms = cuda_ms(lambda: ed25519_batch.verify_kernel_gather_plain(*args), 2)
-    bnd, by = bound_ms(card, nbytes(*args[:3], *args[4:]) + nbytes(tables) + B * 4,
+    bnd, by = bound_ms(card, nbytes(*args) + nbytes(curve.device_base_quarters(dev, 25)) + B * 4,
                        n_ok * ed25519_batch.mads_per_signature(25))
-    rows.append(dict(name="K3 ed25519 verify (txf_verify)", route="cuda",
+    rows.append(dict(name="K3 ed25519 verify (txf_verify, four lanes a signature)", route="cuda",
                      source="txflow_tpu_torch/csrc/verify.cu",
                      replaces="txflow_tpu/ops/ed25519_batch.py:384",
                      max_abs_err=int((k3.int() - p3.int()).abs().max()), ms=ms, plain_ms=pms,
-                     bound_ms=bnd, bound_by=by, library_ms=None,
+                     bound_ms=bnd, bound_by=by, library_ms=None, **VERIFY_LAUNCH_NOTE,
                      shape=f"{B} rows, {n_ok} past the host pre-checks"))
     log(f"K3 verify: bit-exact over {B} rows ({int(k3.sum())} valid, {n_ok} computed); "
         f"{ms:.3f} ms (plain {pms:.1f} ms, bound {bnd:.4f} ms by {by})")
 
     quorum = corpus.quorum
-    packed = tally.compact_step_packed(*args[:3], *args[4:], slot_t, tables, powers_t, prior_t, quorum)
+    packed = tally.compact_step_packed(*args[:3], *args[5:], slot_t, tables, quarters, powers_t,
+                                       prior_t, quorum)
     stake_p, maj_p = tally.tally_plain(k3, slot_t, args[2], powers_t, prior_t, quorum)
     torch.cuda.synchronize()
     require(bool((packed[:B] == k3.int()).all()), "packed valid != verify")
@@ -514,8 +536,97 @@ def kernel_phase(card: dict, corpus: Corpus, dev) -> tuple[list[dict], dict]:
     log(f"K4 tally: bit-exact ({int(maj_p.sum())} slots at quorum); {ms:.4f} ms "
         f"({one_ms:.4f} ms in a window around one launch; plain {pms:.3f} ms, index_add_ + compare {lib_ms:.4f} ms, bound {bnd:.6f} ms by {by})")
     k3_batch = dict(args=args, n=n, n_ok=n_ok, mask=k3, keys=pubs + [BAD_PUB] + [bytes(32)] * 15,
-                    k3_ms=rows[2]["ms"], slot=slot_t, prior=prior_t, quorum=quorum)
+                    k3_ms=rows[2]["ms"], slot=slot_t, prior=prior_t, quorum=quorum,
+                    special=dict(s_ge_l=0, off_curve=40, dup=n - 1, identity_r1=n,
+                                 identity_r_p1=n + 1, padding=n + 2))
     return rows, k3_batch
+
+
+QUARTER_RUNGS = (8, 64, 1000, 1024, 16384)  # 1000: not a multiple of a block's 32 rows
+
+
+def quarter_checks(card: dict, k3: dict, dev, ptx: dict) -> dict:
+    """The four-lane txf_verify (K3, and K6's launch) against its plain
+    version, bit-exact, in both fields at each of QUARTER_RUNGS rows of
+    the K3 batch. Every rung holds a row whose S >= L, an off-curve key's
+    row with its pre-check forced true (the kernel then reads that key's
+    identity tables), the identity rows with R = 1 (valid) and the
+    non-canonical R = p + 1 (invalid), a padding row, a duplicate, and a
+    row with an all-zero quarter of s and one of h; the larger rungs fill
+    up with the batch's votes. Then the A/B in turns (K3, K5, K5, K3) of
+    the four-lane kernel against K5's one-lane body over the same 16384
+    rows and the same tables, gathered per vote for K5, in both fields,
+    beside both kernels' registers."""
+    args25, sp = k3["args"], k3["special"]
+    epoch13 = ed25519_batch.EpochTables(k3["keys"], fe_radix=13)
+    by_field = {25: args25, 13: (*args25[:3], epoch13.device_tables(dev),
+                                 epoch13.device_quarter_tables(dev), *args25[5:])}
+    s_n, h_n, ok = args25[0].clone(), args25[1].clone(), args25[7].clone()
+    forced = sp["off_curve"] + 1
+    ok[forced] = True
+    zq_s, zq_h = 60, 61
+    s_n[zq_s, 0:16] = 0  # quarter 3 of s
+    h_n[zq_h, 48:64] = 0  # quarter 0 of h
+    special = [sp["s_ge_l"], forced, sp["identity_r1"], sp["identity_r_p1"], sp["padding"],
+               sp["dup"], zq_s, zq_h, sp["off_curve"]]
+    # then the batch's votes from row 62 on (rows 0-59 failed their pre-checks)
+    rest = [j for j in range(62, MAX_BATCH) if j not in special] + [
+        j for j in range(62) if j not in special]
+    order = torch.tensor(special + rest, device=dev)
+    checks, masks = [], {}
+    for r, a in by_field.items():
+        full = (s_n, h_n, a[2], a[3], a[4], a[5], a[6], ok)
+        for rung in QUARTER_RUNGS:
+            sub = order[:rung] if rung < MAX_BATCH else torch.arange(MAX_BATCH, device=dev)
+            rows = [full[i][sub] if i not in (3, 4) else full[i] for i in range(8)]
+            k = ed25519_batch.verify_kernel_gather(*rows, fe_radix=r)
+            p = ed25519_batch.verify_kernel_gather_plain(*rows, fe_radix=r)
+            torch.cuda.synchronize()
+            require(bool((k == p).all()), f"txf_verify (radix {r}) != plain at {rung} rows")
+            pos = {int(j): q for q, j in enumerate(sub.tolist())}
+            require(bool(k[pos[sp["identity_r1"]]]) and not bool(k[pos[sp["identity_r_p1"]]]),
+                    f"radix {r}, {rung} rows: R = 1 / R = p + 1 rows")
+            require(not any(bool(k[pos[sp[x]]]) for x in ("s_ge_l", "padding", "dup")),
+                    f"radix {r}, {rung} rows: a row that failed its pre-checks verified")
+            if r == 25:
+                masks[rung] = k
+            require(bool((k == masks[rung]).all()), f"{rung} rows: radix-13 mask != radix-25 mask")
+            ms = cuda_ms_window(lambda: ed25519_batch.verify_kernel_gather(*rows, fe_radix=r), 20)
+            checks.append({"fe_radix": r, "rows": rung, "valid": int(k.sum()),
+                           "computed": int(rows[7].sum()), "max_abs_err": int((k.int() - p.int()).abs().max()),
+                           "ms": ms})
+            log(f"txf_verify radix {r}, {rung} rows: bit-exact with the plain version "
+                f"({int(k.sum())} valid, {int(rows[7].sum())} computed); {ms:.4f} ms")
+    # the A/B: four lanes (K3) against one lane (K5) on the same rows
+    ab = {"rows": MAX_BATCH}
+    names = ("txf_verify_kernel", "txf_verify_encode_kernel", "txf_verify_tables_kernel")
+    for r, a in by_field.items():
+        vi = a[2].long().clamp(0, a[3].shape[0] - 1)
+        k5_args = (a[0], a[1], a[3][vi].contiguous(), a[5], a[6], a[7])
+        m3 = ed25519_batch.verify_kernel_gather(*a, fe_radix=r)
+        m5 = ed25519_batch.verify_kernel(*k5_args, fe_radix=r)
+        torch.cuda.synchronize()
+        require(bool((m3 == m5).all()), f"radix {r}: K3 and K5 masks differ")
+        t = []
+        for fn in ("k3", "k5", "k5", "k3"):
+            if fn == "k3":
+                t.append(cuda_ms_window(lambda: ed25519_batch.verify_kernel_gather(*a, fe_radix=r), 10))
+            else:
+                t.append(cuda_ms_window(lambda: ed25519_batch.verify_kernel(*k5_args, fe_radix=r), 10))
+        lib = "verify13" if r == 13 else "verify"
+        kr = ptx[lib]["kernels"]
+        ab[f"radix{r}"] = {
+            "k3_four_lanes_ms": [t[0], t[3]], "k5_one_lane_ms": [t[1], t[2]],
+            "k5_over_k3": (t[1] + t[2]) / (t[0] + t[3]),
+            "k3_bound_ms": bound_ms(card, 0, k3["n_ok"] * ed25519_batch.mads_per_signature(r))[0],
+            "k5_bound_ms": bound_ms(card, 0, k3["n_ok"] * ed25519_batch.mads_per_signature(
+                r, four_lanes=False))[0],
+            "registers": {k: kr.get(k, {}).get("registers") for k in names},
+            "stack_bytes": {k: kr.get(k, {}).get("stack_bytes") for k in names},
+            "spill_store_bytes": ptx[lib]["spill_store_bytes"]}
+    log("A/B txf_verify (four lanes) vs txf_verify_tables (one lane) at "
+        f"{MAX_BATCH} rows, in turns: " + json.dumps(ab))
+    return {"quarter_checks": checks, "ab_four_lanes_vs_one": ab}
 
 
 # ---------------------------------------------------------------------------
@@ -848,7 +959,7 @@ def k6_rows(card: dict, com: "CommitteeCorpus", dev, fe_radix: int = 25,
     model on a sample, and timed over many launches."""
     c1 = com.committees[1]
     epoch = ed25519_batch.EpochTables([v.pub_key for v in c1], fe_radix=fe_radix)
-    tables = epoch.device_tables(dev)
+    tables, quarters = epoch.device_tables(dev), epoch.device_quarter_tables(dev)
     require(tables.shape[0] == COM_SIZE, "K6 tables are padded")
     idx = {v.address: i for i, v in enumerate(c1)}
     pubs = [v.pub_key for v in c1]
@@ -865,7 +976,7 @@ def k6_rows(card: dict, com: "CommitteeCorpus", dev, fe_radix: int = 25,
         def T(x):
             return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
-        args = (T(batch.s_nibbles), T(batch.h_nibbles), T(batch.val_idx), tables,
+        args = (T(batch.s_nibbles), T(batch.h_nibbles), T(batch.val_idx), tables, quarters,
                 T(batch.r_y), T(batch.r_sign), T(batch.pre_ok))
         k6 = ed25519_batch.verify_kernel_gather(*args, fe_radix=fe_radix)
         p6 = ed25519_batch.verify_kernel_gather_plain(*args, fe_radix=fe_radix)
@@ -881,8 +992,21 @@ def k6_rows(card: dict, com: "CommitteeCorpus", dev, fe_radix: int = 25,
         ms = cuda_ms_window(lambda: ed25519_batch.verify_kernel_gather(*args, fe_radix=fe_radix),
                             max(10, min(200, 65536 // rung)))
         pms = cuda_ms(lambda: ed25519_batch.verify_kernel_gather_plain(*args, fe_radix=fe_radix), 2)
-        bnd, by = bound_ms(card, nbytes(*args) + rung * 4,
-                           n_ok * ed25519_batch.mads_per_signature(fe_radix))
+        bnd, by = bound_ms(card, nbytes(*args) + nbytes(curve.device_base_quarters(dev, fe_radix))
+                           + rung * 4, n_ok * ed25519_batch.mads_per_signature(fe_radix))
+        ab = None
+        if rung == 8:  # the A/B in turns (K6, K5, K5, K6): four lanes against one
+            k5_args = (args[0], args[1], tables[args[2].long()].contiguous(), *args[5:])
+            k5 = ed25519_batch.verify_kernel(*k5_args, fe_radix=fe_radix)
+            require(bool((k5 == k6).all()), "K5 != K6 at rung 8")
+            t = [cuda_ms_window(
+                (lambda: ed25519_batch.verify_kernel_gather(*args, fe_radix=fe_radix)) if k == "k6"
+                else (lambda: ed25519_batch.verify_kernel(*k5_args, fe_radix=fe_radix)), 200)
+                for k in ("k6", "k5", "k5", "k6")]
+            ab = {"rows": rung, "k6_four_lanes_ms": [t[0], t[3]], "k5_one_lane_ms": [t[1], t[2]],
+                  "k5_over_k6": (t[1] + t[2]) / (t[0] + t[3])}
+            log(f"A/B K6 (four lanes) vs K5 (one lane){' radix 13' if fe_radix == 13 else ''} at "
+                f"{rung} rows, in turns: " + json.dumps(ab))
         name = (f"K6 certificate verify (txf_verify alone), rung {rung}" if fe_radix == 25 else
                 f"K6 over K8: certificate verify (txf_verify of verify13 alone), rung {rung}")
         rows.append(dict(name=name, route="cuda", fe_radix=fe_radix,
@@ -891,8 +1015,9 @@ def k6_rows(card: dict, com: "CommitteeCorpus", dev, fe_radix: int = 25,
                              if fe_radix == 13 else ""),
                          replaces="txflow_tpu/committee/certverify.py:43",
                          max_abs_err=int((k6.int() - p6.int()).abs().max()), ms=ms, plain_ms=pms,
-                         bound_ms=bnd, bound_by=by, library_ms=None, rung=rung,
-                         shape=f"{rung} rows, {n_ok} past the host pre-checks, V={COM_SIZE}"))
+                         bound_ms=bnd, bound_by=by, library_ms=None, rung=rung, **VERIFY_LAUNCH_NOTE,
+                         shape=f"{rung} rows, {n_ok} past the host pre-checks, V={COM_SIZE}",
+                         **({"ab_k5_one_lane": ab} if ab else {})))
         log(f"K6{' radix 13' if fe_radix == 13 else ''} rung {rung}: bit-exact ({int(k6h.sum())} valid of {rung}); {ms:.4f} ms "
             f"(plain {pms:.1f} ms, bound {bnd:.5f} ms by {by})")
     return rows
@@ -1264,9 +1389,10 @@ def mesh_phase(corpus: Corpus, mesh: Mesh, engine_builds_mesh: bool) -> tuple[di
                 fb.tables.s_nibbles, fb.tables.h_nibbles, fb.tables.a_tables, fb.tables.r_y,
                 fb.tables.r_sign, fb.tables.pre_ok))), device=dev0)
         tables_r = mesh.replicate(epoch.device_tables(dev0))
+        quarters_r = mesh.replicate(epoch.device_quarter_tables(dev0))
         powers_r = mesh.replicate(torch.tensor(corpus.powers, dtype=torch.int32))
-        ring = sharded_ring_step(mesh, fe_radix=25)(*fb.compact_args(), tables_r, powers_r, prior0,
-                                                    quorum)
+        ring = sharded_ring_step(mesh, fe_radix=25)(*fb.compact_args(), tables_r, quarters_r,
+                                                    powers_r, prior0, quorum)
         for d in dict.fromkeys(mesh.devices):
             torch.cuda.synchronize(d)
     finally:
@@ -1334,6 +1460,43 @@ def mesh_phase(corpus: Corpus, mesh: Mesh, engine_builds_mesh: bool) -> tuple[di
     return out, fb
 
 
+def launch_path_split(acc, b, reps: int = 2000) -> dict:
+    """Host microseconds a call of each piece of the ring hop's launch path
+    takes, each piece alone in a loop of ``reps`` calls between two host
+    clock reads (the card synchronised before and after): the one-pass
+    check of both tensors, the current-device read, the stream read, the
+    two data_ptr reads, the ctypes call of txf_add (which launches the
+    kernel), the whole ring_add, the allocation the hop no longer makes
+    (torch.empty_like), and the whole torch.add. What ring_add spends
+    beyond the sum of its pieces is the launcher lookup, the argument
+    tuple and the count."""
+    idx, s = acc.device.index, acc.shape[0]
+    cfn = _lib.library("tally").txf_add
+    stream = torch.cuda.current_stream(idx).cuda_stream
+    pa, pb = acc.data_ptr(), b.data_ptr()
+    pieces = {
+        "check_all": lambda: _lib.check_all((acc, torch.int32, (s,), "acc"), (b, torch.int32, (s,), "b")),
+        "current_device": torch.cuda.current_device,
+        "stream_read": lambda: torch.cuda.current_stream(idx).cuda_stream,
+        "data_ptrs": lambda: (acc.data_ptr(), b.data_ptr()),
+        "ctypes_call_and_launch": lambda: cfn(pa, pb, s, stream),
+        "ring_add_whole": lambda: tally.ring_add(acc, b),
+        "empty_like_allocation": lambda: torch.empty_like(acc),
+        "torch_add_whole": lambda: torch.add(acc, b),
+    }
+    out = {}
+    for name, fn in pieces.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        out[name] = (t1 - t0) / reps * 1e6
+    return out
+
+
 def mesh_rows(card: dict, corpus: Corpus, mesh: Mesh, fb: FirstBatch, launches: dict,
               steps: int) -> list[dict]:
     """K5 and the K7 kernels at the per-shard shapes the mesh path
@@ -1358,7 +1521,8 @@ def mesh_rows(card: dict, corpus: Corpus, mesh: Mesh, fb: FirstBatch, launches: 
     n_ok = int(fb.tables.pre_ok[:bs].sum())
     ms = cuda_ms_window(lambda: ed25519_batch.verify_kernel(*k5_args), 10)
     pms = cuda_ms(lambda: ed25519_batch.verify_kernel_plain(*k5_args), 2)
-    bnd, by = bound_ms(card, nbytes(*k5_args) + bs * 4, n_ok * ed25519_batch.mads_per_signature(25))
+    bnd, by = bound_ms(card, nbytes(*k5_args) + bs * 4,
+                       n_ok * ed25519_batch.mads_per_signature(25, four_lanes=False))
     rows.append(dict(name="K5 ed25519 verify over per-vote tables (txf_verify_tables)", route="cuda",
                      source="txflow_tpu_torch/csrc/verify.cu",
                      replaces="txflow_tpu/ops/ed25519_batch.py:146", launches=launches["verify_tables"],
@@ -1435,38 +1599,48 @@ def mesh_rows(card: dict, corpus: Corpus, mesh: Mesh, fb: FirstBatch, launches: 
     log(f"K7 reduce-quorum: bit-exact; {ms:.4f} ms (plain {pms:.3f}, torch.stack().sum(0) + prior "
         f"and compare {lib_ms:.4f}, bound {bnd:.6f} ms by {by})")
 
-    # K7 ring hop
+    # K7 ring hop: in place into a buffer the hop owns
     a, b = parts[0], parts[1]
-    k = tally.ring_add(a, b)
-    require(bool((k == tally.ring_add_plain(a, b)).all()), "K7 ring add != plain")
-    ms = cuda_ms_window(lambda: tally.ring_add(a, b), 500, warmup=5)
-    pms = cuda_ms(lambda: tally.ring_add_plain(a, b), 20, warmup=2)
-    lib_ms = cuda_ms_window(lambda: torch.add(a, b), 500, warmup=5)
+    acc = a.clone()
+    k = tally.ring_add(acc, b)
+    want_k = tally.ring_add_plain(a.clone(), b)
+    require(k is acc and bool((k == want_k).all()), "K7 ring add != plain")
+    err = int((k - (a + b)).abs().max())
+    # in turns (hop, torch.add, torch.add, hop), each 500 launches in one window
+    hop = lambda: tally.ring_add(acc, b)  # noqa: E731
+    add = lambda: torch.add(a, b)  # noqa: E731
+    t = [cuda_ms_window(fn, 500, warmup=5) for fn in (hop, add, add, hop)]
+    ms, lib_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    pms = cuda_ms(lambda: tally.ring_add_plain(a.clone(), b), 20, warmup=2)
     bnd, by = bound_ms(card, 3 * S * 4, S)
-    rows.append(dict(name="K7 ring hop accumulate (txf_add)", route="cuda",
+    split = launch_path_split(acc, b)
+    rows.append(dict(name="K7 ring hop accumulate, in place (txf_add)", route="cuda",
                      source="txflow_tpu_torch/csrc/tally.cu", replaces="txflow_tpu/parallel/mesh.py:130",
-                     launches=launches["ring_add"], max_abs_err=int((k - (a + b)).abs().max()),
+                     launches=launches["ring_add"], max_abs_err=err,
                      ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
-                     shape=f"{S} slots"))
-    log(f"K7 ring add: bit-exact; {ms:.4f} ms (plain {pms:.4f}, torch.add {lib_ms:.4f}, bound "
-        f"{bnd:.6f} ms by {by})")
+                     in_turns_ms={"ring_add": [t[0], t[3]], "torch_add": [t[1], t[2]]},
+                     launch_path_us=split, shape=f"{S} slots"))
+    log(f"K7 ring add: bit-exact; {ms:.4f} ms (in turns {t[0]:.4f}, {t[3]:.4f}; torch.add "
+        f"{t[1]:.4f}, {t[2]:.4f}; plain {pms:.4f}, bound {bnd:.6f} ms by {by}); host launch path "
+        "(us a call): " + json.dumps(split))
 
     # the whole sharded step on inputs already on their cards
     epoch = fb.epoch
     args = fb.compact_args()
     shards = [mesh.shard(x) for x in args]
-    consts = [mesh.replicate(epoch.device_tables(dev0)), mesh.replicate(powers), mesh.replicate(prior)]
+    consts = [mesh.replicate(epoch.device_tables(dev0)), mesh.replicate(epoch.device_quarter_tables(dev0)),
+              mesh.replicate(powers), mesh.replicate(prior)]
     step = sharded_compact_step_packed(mesh, fe_radix=25)
     got = to_host(step(*shards, *consts, quorum))
     full = on0(args)
-    pv = ed25519_batch.verify_kernel_gather_plain(*full[:3], consts[0][0], *full[3:6])
+    pv = ed25519_batch.verify_kernel_gather_plain(*full[:3], consts[0][0], consts[1][0], *full[3:6])
     pst, pmj = tally.tally_plain(pv, full[6], full[2], powers, prior, quorum)
     want = torch.cat([torch.cat([pv[sh * bs:(sh + 1) * bs].int(), pst, pmj]) for sh in range(n)]).cpu()
     require(bool((got == want).all()), "K7 sharded step != plain verify + tally")
     cards = list(dict.fromkeys(mesh.devices))
     ms = cuda_ms_window(lambda: step(*shards, *consts, quorum), 5, devices=cards)
     t0 = time.perf_counter()
-    ed25519_batch.verify_kernel_gather_plain(*full[:3], consts[0][0], *full[3:6])
+    ed25519_batch.verify_kernel_gather_plain(*full[:3], consts[0][0], consts[1][0], *full[3:6])
     tally.tally_plain(pv, full[6], full[2], powers, prior, quorum)
     torch.cuda.synchronize(dev0)
     pms = (time.perf_counter() - t0) * 1e3
@@ -1474,7 +1648,7 @@ def mesh_rows(card: dict, corpus: Corpus, mesh: Mesh, fb: FirstBatch, launches: 
     k_cards = len(cards)
     scaled = dict(card, hbm_bytes_per_s=card["hbm_bytes_per_s"] * k_cards,
                   imad_per_s=card["imad_per_s"] * k_cards)
-    bnd, by = bound_ms(scaled, nbytes(*args) + nbytes(consts[0][0], powers, prior)
+    bnd, by = bound_ms(scaled, nbytes(*args) + nbytes(consts[0][0], consts[1][0], powers, prior)
                        + n * (bs + 2 * S) * 4, n_ok * ed25519_batch.mads_per_signature(25))
     rows.append(dict(name="K7 sharded fused step (per shard txf_verify + txf_tally_partial, "
                           "peer copies, txf_reduce_quorum)", route="cuda",
@@ -1541,7 +1715,8 @@ def radix13_mesh_reference(corpus: Corpus, mesh: Mesh) -> dict:
     powers = torch.tensor(corpus.powers, dtype=torch.int32)
     dev0 = mesh.devices[0]
     packed = to_host(sharded_compact_step_packed(mesh, fe_radix=25)(
-        *vote, mesh.replicate(epochs[25].device_tables(dev0)), powers, T(prior), corpus.quorum))
+        *vote, mesh.replicate(epochs[25].device_tables(dev0)),
+        mesh.replicate(epochs[25].device_quarter_tables(dev0)), powers, T(prior), corpus.quorum))
     return dict(msgs=msgs, sigs=sigs, vix=vix, slots=slots, vote=vote, powers=powers,
                 prior=T(prior), epochs=epochs, packed=packed)
 
@@ -1560,7 +1735,8 @@ def radix13_mesh_path(corpus: Corpus, mesh: Mesh, ref: dict) -> dict:
     for a, b in zip(vote, ref["vote"]):
         require(bool((a == b).all()), "the radix-13 prep differs from the radix-25 prep")
     got = to_host(sharded_compact_step_packed(mesh, fe_radix=13)(
-        *vote, mesh.replicate(e13.device_tables(dev0)), ref["powers"], ref["prior"], corpus.quorum))
+        *vote, mesh.replicate(e13.device_tables(dev0)), mesh.replicate(e13.device_quarter_tables(dev0)),
+        ref["powers"], ref["prior"], corpus.quorum))
     require(bool((got == ref["packed"]).all()), "radix-13 sharded step != radix-25 packed output")
     pb = ed25519_batch.prepare_batch(ref["msgs"], ref["sigs"], ref["vix"], e13)
     per_vote = ref["powers"][torch.from_numpy(ref["vix"].astype(np.int64))]
@@ -1623,7 +1799,7 @@ def k8_rows(card: dict, k3: dict, dev, launches: dict, ptx: dict) -> tuple[list[
     args25 = k3["args"]
     epoch13 = ed25519_batch.EpochTables(k3["keys"], fe_radix=13)
     tables13 = epoch13.device_tables(dev)
-    args13 = (*args25[:3], tables13, *args25[4:])
+    args13 = (*args25[:3], tables13, epoch13.device_quarter_tables(dev), *args25[5:])
     # K2 over K8: scalar pairs
     s_nib = torch.from_numpy(rng.integers(0, 16, (N_DSM, 64), dtype=np.uint8)).to(dev)
     h_nib = torch.from_numpy(rng.integers(0, 16, (N_DSM, 64), dtype=np.uint8)).to(dev)
@@ -1664,8 +1840,8 @@ def k8_rows(card: dict, k3: dict, dev, launches: dict, ptx: dict) -> tuple[list[
     require(bool((k == mask25).all()), "verify13 mask != the radix-25 kernel's")
     require(k[n].item() and not k[n + 1].item(), "radix 13: non-canonical R check failed")
     mads13 = ed25519_batch.mads_per_signature(13)
-    bnd13, by13 = bound_ms(card, nbytes(*args13[:3], *args13[4:]) + nbytes(tables13) + MAX_BATCH * 4,
-                           n_ok * mads13)
+    bnd13, by13 = bound_ms(card, nbytes(*args13) + nbytes(curve.device_base_quarters(dev, 13))
+                           + MAX_BATCH * 4, n_ok * mads13)
     # the A/B: K3 and verify13 in turns (K3, K8, K8, K3)
     ab = []
     for r, args in ((25, args25), (13, args13), (13, args13), (25, args25)):
@@ -1677,7 +1853,7 @@ def k8_rows(card: dict, k3: dict, dev, launches: dict, ptx: dict) -> tuple[list[
                      replaces="txflow_tpu/ops/ed25519_batch.py:384 under txflow_tpu/ops/fe.py:173",
                      launches=launches["verify13"], max_abs_err=int((k.int() - p.int()).abs().max()),
                      ms=ms, plain_ms=pms, bound_ms=bnd13, bound_by=by13, library_ms=None,
-                     shape=f"{MAX_BATCH} rows, {n_ok} past the host pre-checks",
+                     **VERIFY_LAUNCH_NOTE, shape=f"{MAX_BATCH} rows, {n_ok} past the host pre-checks",
                      time_note="plain: one run over the whole batch"))
     reg = {lib: ptx[lib]["kernels"].get("txf_verify_kernel", {}) for lib in ("verify", "verify13")}
     ab_line = {"rows": MAX_BATCH, "k3_ms": [ab[0], ab[3]], "verify13_ms": [ab[1], ab[2]],
@@ -1695,7 +1871,7 @@ def k8_rows(card: dict, k3: dict, dev, launches: dict, ptx: dict) -> tuple[list[
 
     # K5 over K8: per-vote gathered radix-13 tables; plain on a sub-batch
     vi = args25[2].long().clamp(0, tables13.shape[0] - 1)
-    k5_args = (args25[0], args25[1], tables13[vi].contiguous(), args25[4], args25[5], args25[6])
+    k5_args = (args25[0], args25[1], tables13[vi].contiguous(), args25[5], args25[6], args25[7])
     k5 = ed25519_batch.verify_kernel(*k5_args, fe_radix=13)
     sub = torch.cat([torch.arange(0, min(1024, n), device=dev), torch.tensor([n, n + 1], device=dev)])
     p5 = ed25519_batch.verify_kernel_plain(*(x[sub] for x in k5_args), fe_radix=13)
@@ -1704,7 +1880,8 @@ def k8_rows(card: dict, k3: dict, dev, launches: dict, ptx: dict) -> tuple[list[
     require(bool((k5 == mask25).all()), "verify_tables13 mask != the radix-25 kernel's")
     ms5 = cuda_ms_window(lambda: ed25519_batch.verify_kernel(*k5_args, fe_radix=13), 10)
     pms5 = cuda_ms(lambda: ed25519_batch.verify_kernel_plain(*(x[sub] for x in k5_args), fe_radix=13), 1)
-    bnd5, by5 = bound_ms(card, nbytes(*k5_args) + MAX_BATCH * 4, n_ok * mads13)
+    bnd5, by5 = bound_ms(card, nbytes(*k5_args) + MAX_BATCH * 4,
+                         n_ok * ed25519_batch.mads_per_signature(13, four_lanes=False))
     rows.append(dict(name="K5 over K8: verify over per-vote tables (txf_verify_tables of verify13)",
                      route="cuda", source="txflow_tpu_torch/csrc/verify.cu (-DTXF_FE_RADIX=13)",
                      replaces="txflow_tpu/ops/ed25519_batch.py:146 under txflow_tpu/ops/fe.py:173",
@@ -1863,7 +2040,8 @@ def cross_card_phase() -> None:
     batch = ed25519_batch.prepare_compact(msgs, sigs, vix, epoch)
     cpu = torch.device("cpu")
     k3_args = [torch.from_numpy(np.ascontiguousarray(x)) for x in (
-        batch.s_nibbles, batch.h_nibbles, batch.val_idx)] + [epoch.device_tables(cpu)] + [
+        batch.s_nibbles, batch.h_nibbles, batch.val_idx)] + [
+        epoch.device_tables(cpu), epoch.device_quarter_tables(cpu)] + [
         torch.from_numpy(np.ascontiguousarray(x)) for x in (batch.r_y, batch.r_sign, batch.pre_ok)]
     k2_args = k3_args[:4]
     fe_a = torch.from_numpy(fe.bytes_to_limbs_np(
@@ -1950,6 +2128,7 @@ def main() -> int:
         f"({time.perf_counter() - t0:.1f} s with setup); {sum(corpus.byzantine)} byzantine; "
         f"{int(corpus.expect_commit.sum())}/{N_TXS} txs reach quorum on honest stake")
     rows, k3 = kernel_phase(card, corpus, dev)
+    qc = quarter_checks(card, k3, dev, ptx)
     sl, sl_res = slice_phase(corpus, dev)
     by_name = {"K1": "verify", "K2": "verify", "K3": "verify", "K4": "tally"}
     for r in rows:
@@ -1999,11 +2178,13 @@ def main() -> int:
     rows += mesh_rows(card, mcorpus, mesh, fb, mp["launches"], mp["mesh"]["steps"])
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "ptxas": ptx, "kernels": rows, "slice": sl, "radix13_slice": s13,
-                   "int64_slice": wide, "ab_k3_verify13": ab, "committee": cm, "mesh": mp}, f, indent=1)
+        json.dump({"card": card, "ptxas": ptx, "kernels": rows, "txf_verify_quarters": qc, "slice": sl,
+                   "radix13_slice": s13, "int64_slice": wide, "ab_k3_verify13": ab, "committee": cm,
+                   "mesh": mp}, f, indent=1)
     for name, run in (("radix13_slice", s13), ("int64_slice", wide)):
         log(json.dumps({name: {k: v for k, v in run.items() if k != "step_s"}}))
     log(json.dumps({"ab_k3_verify13": ab}))
+    log(json.dumps({"txf_verify_quarters": qc}))
     log(json.dumps({"committee": {k: v for k, v in cm.items() if k not in (
         "step_s", "vote_heights_per_response", "k6_one_launch_window_ms_per_group",
         "k6_main_path_checked")}}))

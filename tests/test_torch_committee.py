@@ -244,9 +244,10 @@ def test_epoch_from_jax_on_committee_tables():
     jc = jcom.sample_committee(jvals, CHAIN, 3, 5)
     pc = pcom.sample_committee(pvals, CHAIN, 3, 5)
     jt = jed.EpochTables([v.pub_key for v in jc])
-    tables, powers = convert.epoch_from_jax(np.asarray(jt.tables), jc.powers_array())
+    tables, quarters, powers = convert.epoch_from_jax(np.asarray(jt.tables), jc.powers_array())
     own = ped.EpochTables([v.pub_key for v in pc])
     assert tables.shape == (5, 16, 4, 10) and np.array_equal(tables, own.tables)
+    assert np.array_equal(quarters, own.quarter_tables)
     assert np.array_equal(powers, pc.powers_array().astype(np.int32))
     assert np.array_equal(own.key_ok, np.asarray(jt.key_ok))
     staged = pcom.BatchCertVerifier(pc, device="cpu")._stage[4]

@@ -47,7 +47,7 @@ def test_tables_match_jax_layout():
     pts = [rand_point() for _ in range(3)]
     jt = np.stack([jcurve.build_pniels_table(p) for p in pts])
     pt = np.stack([curve.build_pniels_table(p) for p in pts])
-    tables, powers = convert.epoch_from_jax(jt, np.array([10, 20, 30]))
+    tables, _quarters, powers = convert.epoch_from_jax(jt, np.array([10, 20, 30]))
     np.testing.assert_array_equal(tables, pt)
     assert powers.dtype == np.int32 and powers.tolist() == [10, 20, 30]
 
@@ -81,7 +81,7 @@ def test_double_scalar_mul_indexed_and_encode_match_jax():
     )
     jy, jpar = jcurve.ext_encode(jp)
     # port, over the converted epoch tables
-    tables, _ = convert.epoch_from_jax(jtables, np.ones(V))
+    tables, _quarters, _ = convert.epoch_from_jax(jtables, np.ones(V))
     y, par = curve.dsm_encode(
         torch.from_numpy(s_nib.astype(np.uint8)), torch.from_numpy(h_nib.astype(np.uint8)),
         torch.from_numpy(vidx), torch.from_numpy(tables),

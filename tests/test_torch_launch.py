@@ -88,12 +88,13 @@ def fake(monkeypatch):
     lib.v13 = FakeLib13(lib)
     monkeypatch.setattr(_lib, "_loaded", {"verify": lib, "verify13": lib.v13, "tally": lib})
     monkeypatch.setattr(_lib, "_tabled", set())
+    monkeypatch.setattr(_lib, "_launchers", {})
     monkeypatch.setattr(_lib, "launches", {k: 0 for k in _lib.KERNELS})
     monkeypatch.setattr(torch.cuda, "device", device)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: lib.current)
     monkeypatch.setattr(
         torch.cuda, "current_stream",
-        lambda dev: SimpleNamespace(cuda_stream=1000 + dev.index),
+        lambda dev: SimpleNamespace(cuda_stream=1000 + torch.device("cuda", dev).index),
     )
     return lib
 

@@ -56,9 +56,10 @@ def ref():
         *vote, epoch.tables, powers, prior, np.int32(quorum)
     )
     want = _unpack(packed, 8)
-    tables, powers_p = convert.epoch_from_jax(epoch.tables, powers)
+    tables, quarters, powers_p = convert.epoch_from_jax(epoch.tables, powers)
     port_args = [torch.from_numpy(np.ascontiguousarray(x)) for x in vote] + [
-        torch.from_numpy(tables), torch.from_numpy(powers_p), torch.from_numpy(prior), quorum]
+        torch.from_numpy(tables), torch.from_numpy(quarters), torch.from_numpy(powers_p),
+        torch.from_numpy(prior), quorum]
     return port_args, want
 
 
@@ -82,8 +83,8 @@ def test_sharded_step_unpacked_matches_jax(ref):
     """The unpacked form over shards given as per-shard lists."""
     args, (valid, stake, maj) = ref
     mesh = pm.make_mesh(2, device="cpu")
-    shards = [mesh.shard(a) for a in args[:7]] + [mesh.replicate(a) for a in args[7:10]]
-    v, st, mj = pm.sharded_compact_step(mesh)(*shards, args[10])
+    shards = [mesh.shard(a) for a in args[:7]] + [mesh.replicate(a) for a in args[7:11]]
+    v, st, mj = pm.sharded_compact_step(mesh)(*shards, args[11])
     np.testing.assert_array_equal(torch.cat(v).numpy(), valid.astype(bool))
     for sh in range(2):
         np.testing.assert_array_equal(st[sh].numpy(), stake)

@@ -64,8 +64,8 @@ def test_ring_step_equals_the_psum_step():
     prior = np.array([0, 25, 0, 0, 10, 0, 0, 0], np.int32)
     args = [t(np.ascontiguousarray(x)) for x in (c.s_nibbles, c.h_nibbles, c.val_idx, c.r_y,
                                                  c.r_sign, c.pre_ok)] + [
-        t(np.asarray(slot, np.int32)), t(epoch.tables), t(np.full(4, 10, np.int32)), t(prior),
-        int(pv.quorum_power())]
+        t(np.asarray(slot, np.int32)), t(epoch.tables), t(epoch.quarter_tables),
+        t(np.full(4, 10, np.int32)), t(prior), int(pv.quorum_power())]
     mesh = pm.make_mesh(4, device="cpu")
     v_p, st_p, mj_p = pm.sharded_compact_step(mesh)(*args)
     v_r, st_r, mj_r = pm.sharded_ring_step(mesh)(*args)

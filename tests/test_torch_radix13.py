@@ -71,9 +71,10 @@ def ref():
 def test_radix13_tables_are_the_jax_tables_converted(ref):
     _msgs, _sigs, _vidx, pubs, jepoch, _k3 = ref
     epoch = eb.EpochTables(pubs + [bytes(32)], fe_radix=13)
-    tables, _ = convert.epoch_from_jax(jepoch.tables, np.ones(8), fe_radix=13)
+    tables, quarters, _ = convert.epoch_from_jax(jepoch.tables, np.ones(8), fe_radix=13)
     assert epoch.fe_radix == 13 and tables.shape == (8, 16, 4, 20)
     np.testing.assert_array_equal(epoch.tables, tables)
+    np.testing.assert_array_equal(epoch.quarter_tables, quarters)
     np.testing.assert_array_equal(
         curve.BASE_TABLES[13], convert.base_table_from_jax(np.asarray(jcurve.BASE_TABLE), fe_radix=13))
 
@@ -82,7 +83,8 @@ def test_k3_radix13_mask_matches_jax_and_golden(ref):
     msgs, sigs, vidx, pubs, _jepoch, k3 = ref
     epoch = eb.EpochTables(pubs + [bytes(32)], fe_radix=13)
     c = _with_identity_rows(eb.prepare_compact(msgs, sigs, vidx, epoch), lambda b: b)
-    args = [T(x[ROWS]) for x in (c.s_nibbles, c.h_nibbles, c.val_idx)] + [T(epoch.tables)] + [
+    args = [T(x[ROWS]) for x in (c.s_nibbles, c.h_nibbles, c.val_idx)] + [
+        T(epoch.tables), T(epoch.quarter_tables)] + [
         T(x[ROWS]) for x in (c.r_y, c.r_sign, c.pre_ok)]
     got = eb.verify_kernel_gather(*args, fe_radix=13).numpy()
     np.testing.assert_array_equal(got, k3[ROWS])

@@ -42,10 +42,11 @@ def test_two_shard_radix13_step_matches_jax_mesh():
     want = _unpack(sharded_compact_step_packed_cached(jax_make_mesh(8))(
         *vote, epoch.tables, powers, prior, np.int32(quorum)), 8)
 
-    tables, powers_p = convert.epoch_from_jax(epoch.tables, powers, fe_radix=13)
+    tables, quarters, powers_p = convert.epoch_from_jax(epoch.tables, powers, fe_radix=13)
     assert tables.shape[-1] == 20
     args = [torch.from_numpy(np.ascontiguousarray(x)) for x in vote] + [
-        torch.from_numpy(tables), torch.from_numpy(powers_p), torch.from_numpy(prior), quorum]
+        torch.from_numpy(tables), torch.from_numpy(quarters), torch.from_numpy(powers_p),
+        torch.from_numpy(prior), quorum]
     mesh = pm.make_mesh(2, device="cpu")
     parts = pm.sharded_compact_step_packed(mesh, fe_radix=13)(*args)
     assert [p.shape for p in parts] == [(B // 2 + 2 * N_SLOTS,)] * 2

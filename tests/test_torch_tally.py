@@ -71,11 +71,11 @@ def test_compact_step_packed_matches_jax():
         jnp.asarray(jepoch.tables), jnp.asarray(powers), jnp.asarray(prior),
         jnp.int32(quorum),
     ))
-    tables, pw = convert.epoch_from_jax(jepoch.tables, powers)
+    tables, quarters, pw = convert.epoch_from_jax(jepoch.tables, powers)
     t = [torch.from_numpy(np.ascontiguousarray(a)) for a in vote_args]
     got = tally.compact_step_packed(
-        *t, torch.from_numpy(slot), torch.from_numpy(tables), torch.from_numpy(pw),
-        torch.from_numpy(prior), quorum,
+        *t, torch.from_numpy(slot), torch.from_numpy(tables), torch.from_numpy(quarters),
+        torch.from_numpy(pw), torch.from_numpy(prior), quorum,
     )
     assert got.dtype == torch.int32 and got.shape == (b + 2 * s,)
     np.testing.assert_array_equal(got.numpy(), want)
@@ -83,8 +83,8 @@ def test_compact_step_packed_matches_jax():
     # the unpacked form (JAX compact_step's three results are the packed
     # vector's segments, tally.py:114)
     valid, stake, maj = tally.compact_step(
-        *t, torch.from_numpy(slot), torch.from_numpy(tables), torch.from_numpy(pw),
-        torch.from_numpy(prior), quorum,
+        *t, torch.from_numpy(slot), torch.from_numpy(tables), torch.from_numpy(quarters),
+        torch.from_numpy(pw), torch.from_numpy(prior), quorum,
     )
     assert valid.dtype == torch.bool and maj.dtype == torch.bool
     np.testing.assert_array_equal(valid.numpy(), want[:b].astype(bool))

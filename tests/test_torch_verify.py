@@ -80,8 +80,9 @@ def test_epoch_from_jax_matches_port_epoch_tables():
     pubs = pubs + [BAD_PUB, bytes(32)]
     jepoch, epoch = jeb.EpochTables(pubs), eb.EpochTables(pubs)
     powers = np.arange(1, 8) * 10
-    tables, pw = convert.epoch_from_jax(jepoch.tables, powers)
+    tables, quarters, pw = convert.epoch_from_jax(jepoch.tables, powers)
     np.testing.assert_array_equal(tables, epoch.tables)
+    np.testing.assert_array_equal(quarters, epoch.quarter_tables)
     np.testing.assert_array_equal(jepoch.key_ok, epoch.key_ok)
     np.testing.assert_array_equal(jepoch.pub_arr, epoch.pub_arr)
     assert pw.dtype == np.int32 and pw.tolist() == powers.tolist()
@@ -105,10 +106,10 @@ def test_verify_kernel_gather_matches_jax_and_golden():
         jnp.zeros(64, jnp.int32), jnp.int32(1),
     )
     want_jax = np.asarray(packed)[:n].astype(bool)
-    tables, _ = convert.epoch_from_jax(jepoch.tables, np.ones(8))
+    tables, quarters, _ = convert.epoch_from_jax(jepoch.tables, np.ones(8))
     got = eb.verify_kernel_gather(
         *(torch.from_numpy(np.ascontiguousarray(a)) for a in args[:3]),
-        torch.from_numpy(tables),
+        torch.from_numpy(tables), torch.from_numpy(quarters),
         *(torch.from_numpy(np.ascontiguousarray(a)) for a in args[3:]),
     ).numpy()
     assert got.dtype == bool and got.shape == (b,)
@@ -127,13 +128,14 @@ def test_noncanonical_r_rejected():
     non-canonical encoding R = p + 1 of the same y does not (the compare is
     on the raw 255 bits, like Go's byte comparison)."""
     _, pubs = make_keys(1)
-    tables = torch.from_numpy(eb.EpochTables(pubs).tables)
+    epoch = eb.EpochTables(pubs)
+    tables, quarters = torch.from_numpy(epoch.tables), torch.from_numpy(epoch.quarter_tables)
     r = np.stack([
         np.frombuffer(v.to_bytes(32, "little"), np.uint8) for v in (1, fe.P_INT + 1)
     ])
     zero = torch.zeros((2, 64), dtype=torch.uint8)
     got = eb.verify_kernel_gather(
-        zero, zero, torch.zeros(2, dtype=torch.int32), tables, torch.from_numpy(r),
+        zero, zero, torch.zeros(2, dtype=torch.int32), tables, quarters, torch.from_numpy(r),
         torch.zeros(2, dtype=torch.uint8), torch.ones(2, dtype=torch.bool),
     )
     assert got.tolist() == [True, False]

@@ -105,5 +105,8 @@ def test_reduce_quorum_and_ring_add_plain(n):
     tally.reduce_quorum(torch.from_numpy(parts), torch.from_numpy(prior), quorum,
                         packed[:32], packed[32:])
     np.testing.assert_array_equal(packed[:32].numpy(), want)
-    total = tally.ring_add(torch.from_numpy(parts[0]), torch.from_numpy(prior))
+    # the ring hop accumulates in place into a buffer its caller owns
+    acc = torch.from_numpy(parts[0].copy())
+    total = tally.ring_add(acc, torch.from_numpy(prior))
+    assert total is acc
     np.testing.assert_array_equal(total.numpy(), parts[0].astype(np.int64) + prior)

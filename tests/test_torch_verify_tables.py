@@ -134,6 +134,7 @@ def test_verify_kernel_on_the_jax_inputs_matches_jax_and_k3(ref):
     c = eb.prepare_compact(msgs, sigs, vidx, epoch)
     k3 = eb.verify_kernel_gather(*(torch.from_numpy(np.ascontiguousarray(x)) for x in (
         c.s_nibbles, c.h_nibbles, c.val_idx)), torch.from_numpy(epoch.tables),
+        torch.from_numpy(epoch.quarter_tables),
         *(torch.from_numpy(np.ascontiguousarray(x)) for x in (c.r_y, c.r_sign, c.pre_ok)))
     n = len(msgs) - len(IDENTITY_ROWS)
     np.testing.assert_array_equal(k3.numpy()[:n], want[:n])

@@ -11,7 +11,9 @@ fingerprint, and a committee-mode engine mounts it directly (``submit``
 routes through ``verify_and_tally``).
 
 Shapes: a batch pads to a power-of-two rung (floor 8); the tables are
-[V, 16, 4, NLIMB] with V the committee size, unpadded, in the field that
+[V, 16, 4, NLIMB] and their quarter tables [V, 3, 16, 4, NLIMB] (the
+four-lane kernel reads both) with V the committee size, unpadded, in the
+field that
 ``fe_radix`` picks at construction (25 or 13, ``ops/field.py``; None
 reads ``TXFLOW_FE_RADIX`` then) and every restage keeps. Below ``min_batch``
 rows the parent's host loop runs instead -- a size rule, counted in
@@ -56,24 +58,27 @@ class BatchCertVerifier(ScalarVoteVerifier):
         super().__init__(val_set)  # stages the set through restage()
 
     def restage(self, new_val_set: ValidatorSet) -> bool:
-        """Swap in a new validator set. The window tables are built and
-        uploaded once per stage (never per call); an unchanged set keeps
-        its staged tables with no upload. Everything is built before the
-        one stage tuple swaps, so a failed build or upload leaves the old
-        stage whole, and the host loop and the kernel path always read the
-        same set. The upload is ordered on the current stream, so every
-        later launch on it reads the new tables."""
+        """Swap in a new validator set. The window tables and their
+        quarter tables are built and uploaded once per stage (never per
+        call); an unchanged set keeps its staged tables with no upload.
+        Everything is built and both tensors uploaded before the one stage
+        tuple swaps, so a failed build or upload leaves the old stage
+        whole, and the host loop and the kernel path always read the same
+        set. The uploads are ordered on the current stream, so every later
+        launch on it reads the new tables."""
         old = getattr(self, "_stage", None)
         if old is not None and old[0].hash() == new_val_set.hash():
             return True
         pub_keys = [v.pub_key for v in new_val_set]
         epoch = ops_ed.EpochTables(pub_keys, self.fe_radix)
         tables = epoch.device_tables(self.device)
-        if tables.shape[0] != new_val_set.size():
+        quarters = epoch.device_quarter_tables(self.device)
+        if tables.shape[0] != new_val_set.size() or quarters.shape[0] != tables.shape[0]:
             raise RuntimeError("staged tables do not match the validator set")
         # (val_set, pub_keys, powers) as the parent reads it, then the
         # kernel path's epoch and tables
-        self._stage = (new_val_set, pub_keys, new_val_set.powers_array(), epoch, tables)
+        self._stage = (new_val_set, pub_keys, new_val_set.powers_array(), epoch, tables,
+                       quarters)
         return True
 
     def verify_and_tally(
@@ -93,7 +98,7 @@ class BatchCertVerifier(ScalarVoteVerifier):
                 msgs, sigs, val_idx, tx_slot, n_slots,
                 prior_stake=prior_stake, quorum=quorum,
             )
-        val_set, _, powers, epoch, tables = self._stage
+        val_set, _, powers, epoch, tables, quarters = self._stage
         val_idx = np.asarray(val_idx, dtype=np.int64)
         tx_slot = np.asarray(tx_slot, dtype=np.int64)
         keep = first_occurrence_mask(tx_slot, val_idx)
@@ -116,7 +121,7 @@ class BatchCertVerifier(ScalarVoteVerifier):
         # ONE launch for the whole batch; padding rows carry pre_ok False
         out = ops_ed.verify_kernel_gather(
             dev(batch.s_nibbles), dev(batch.h_nibbles), dev(batch.val_idx),
-            tables, dev(batch.r_y), dev(batch.r_sign), dev(pre_ok),
+            tables, quarters, dev(batch.r_y), dev(batch.r_sign), dev(pre_ok),
             fe_radix=self.fe_radix,
         )
         self.batch_calls += 1

@@ -14,9 +14,13 @@
 // row val_idx*16 + nibble.
 //
 // What bounds it: field multiplies, 3147 per double-scalar multiply and
-// encode (45 per window over 64 windows, plus 267 for the inversion and
-// the two affine products). The window loop is not unrolled, so the
-// code stays small; each point lives in registers.
+// encode in one thread (45 per window over 64 windows, plus 267 for the
+// inversion and the two affine products); the four-lane verify kernel
+// (verify.cu) cuts one thread's chain to 16 windows and two combine
+// rounds (ge_p3_to_pniels + ge_pniels_add), 709, then a second launch's
+// encode, 267. The
+// window loops are not unrolled, so the code stays small; each point
+// lives in registers.
 //
 // One source, two fields: TXF_FE_RADIX=13 (nvcc -DTXF_FE_RADIX=13, the
 // library verify13) builds these formulas over the radix-2^13 field of
@@ -93,6 +97,39 @@ TXF_DEV void ge_pniels_add(ge_p3* r, const ge_p3* p, const ge_pniels* n) {
   fe_mul(r->Y, G, H);
   fe_mul(r->Z, F, G);
   fe_mul(r->T, E, H);
+}
+
+// 2d in canonical limbs of the field (ops/curve.py:D2_INT).
+TXF_DEV void fe_set_d2(fe h) {
+#if defined(TXF_FE_RADIX) && TXF_FE_RADIX == 13
+  const int32_t k[TXF_NLIMB] = {4441, 5527, 1289, 3383, 3773, 6315, 2574,
+                                4944, 20,   7,    5196, 7655, 3886, 1856,
+                                7270, 8092, 5855, 3810, 438,  72};
+#else
+  const int32_t k[TXF_NLIMB] = {45281625, 27714825, 36363642, 13898781,
+                                229458,   15978800, 54557047, 27058993,
+                                29715967, 9444199};
+#endif
+#pragma unroll
+  for (int i = 0; i < TXF_NLIMB; ++i) h[i] = k[i];
+}
+
+// Extended -> PNiels (Y+X, Y-X, Z, 2d T): one product. The combine
+// rounds of the four-lane verify kernel add a partner lane's point to
+// their own with ge_pniels_add after this conversion, so an addition of
+// two Extended points is this product plus ge_pniels_add's 8 (the unified
+// formula: complete on the whole curve, doubling and identity included).
+// Bounds: Y+X and Y-X of fe_mul outputs are 2 carried units over radix
+// 2^25.5 (ge_pniels_add's inputs from a table are 2 units too), and
+// normalized over radix 2^13 (fe_add and fe_sub carry there); T * 2d is a
+// product of a fe_mul output and a canonical constant.
+TXF_DEV void ge_p3_to_pniels(ge_pniels* n, const ge_p3* p) {
+  fe d2;
+  fe_set_d2(d2);
+  fe_add(n->YpX, p->Y, p->X);
+  fe_sub(n->YmX, p->Y, p->X);
+  fe_copy(n->Z, p->Z);
+  fe_mul(n->T2d, p->T, d2);
 }
 
 // One table row (4 * TXF_NLIMB int32) -> PNiels entry.

@@ -8,7 +8,8 @@
 // int32 readback in place; and, for parallel/mesh.py (K7), the per-shard
 // partial tally (the same kernel with no prior and no compare), the psum
 // of the partials with the prior and the compare (txf_reduce_quorum), and
-// one hop of ring_tally's accumulate (txf_add).
+// one hop of ring_tally's accumulate (txf_add, in place into the running
+// total the hop owns).
 //
 // What bounds them: neither bytes (about 12 bytes a vote and 12 a slot)
 // nor operations: at the engine's sizes each is a few microseconds of
@@ -101,11 +102,12 @@ txf_reduce_quorum_kernel(const Acc* __restrict__ parts, int n,
   maj[s] = acc >= quorum ? 1 : 0;
 }
 
+// acc[s] += b[s]: one ring hop, in place.
 __global__ void __launch_bounds__(256)
-txf_add_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-               int32_t* __restrict__ out, int S) {
+txf_add_kernel(int32_t* __restrict__ acc, const int32_t* __restrict__ b,
+               int S) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s < S) out[s] = a[s] + b[s];
+  if (s < S) acc[s] += b[s];
 }
 
 static inline int grid_for(int n, int threads) {
@@ -181,11 +183,10 @@ int txf_reduce_quorum64(const int64_t* parts, int n, const int64_t* prior,
   return (int)cudaGetLastError();
 }
 
-int txf_add(const int32_t* a, const int32_t* b, int32_t* out, int S,
-            void* stream) {
+int txf_add(int32_t* acc, const int32_t* b, int S, void* stream) {
   if (S <= 0) return 0;
-  txf_add_kernel<<<grid_for(S, 256), 256, 0, (cudaStream_t)stream>>>(a, b,
-                                                                   out, S);
+  txf_add_kernel<<<grid_for(S, 256), 256, 0, (cudaStream_t)stream>>>(acc, b,
+                                                                   S);
   return (int)cudaGetLastError();
 }
 

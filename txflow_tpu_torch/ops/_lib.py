@@ -9,20 +9,28 @@ builds twice, once over each field: ``verify`` (radix 2^25.5) and
 import: the CPU tests import every module and never reach a build.
 
 Every launch goes through :func:`launch`, which makes the tensors'
-card the current device, passes PyTorch's current stream there, raises
-when the C entry point reports a CUDA error, and adds one to
-``launches[kernel]`` -- the count that shows a run went through the
-kernel. A failed build or launch raises; there is no fallback.
+card the current device (only when another card is current), passes
+PyTorch's current stream there, raises when the C entry point reports a
+CUDA error, and adds one to ``launches[kernel]`` -- the count that shows
+a run went through the kernel. A failed build or launch raises; there is
+no fallback. The launch path is host time on every launch (the small
+kernels' whole cost): the library, the bound C function and the card
+are resolved once per (kernel, card) into a cached launcher, so a launch
+is a dict lookup, a current-device compare, the stream read
+(``torch.cuda.current_stream(index).cuda_stream``, the public way: about
+4 us of a launch's 16 on the H100's host, ``PERF.md`` section 6) and the
+ctypes call. A wrapper checks its tensors in one pass (:func:`check_all`).
 
 Each verify library keeps the base-point table of its field in
-``__constant__`` memory, which each card holds separately for each
-library: :func:`launch` copies it to a card before that library's first
-launch there.
+``__constant__`` memory (its one-lane kernels read it), which each card
+holds separately for each library: a launcher copies it to a card before
+that library's first launch there. The four-lane ``txf_verify`` takes
+the base point's quarter tables as a device tensor instead
+(``curve.device_base_quarters``).
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import os
 import shutil
@@ -46,7 +54,7 @@ NVCC_FLAGS = [
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _VERIFY_FNS = {
     "txf_set_base_table": [_P],
-    "txf_verify": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P],
+    "txf_verify": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P],
     "txf_verify_tables": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
     "txf_dsm_encode": [_P, _P, _P, _P, _I, _P, _P, _I, _P],
     "txf_fe_ops": [_P, _P, _P, _I, _P],
@@ -67,7 +75,7 @@ LIBS = {
             "txf_tally_partial64": [_P, _P, _P, _P, _I, _P, _I, _I, _P],
             "txf_reduce_quorum": [_P, _I, _P, _I, _P, _P, _I, _P],
             "txf_reduce_quorum64": [_P, _I, _P, _L, _P, _P, _I, _P],
-            "txf_add": [_P, _P, _P, _I, _P],
+            "txf_add": [_P, _P, _I, _P],
         },
     ),
 }
@@ -89,6 +97,8 @@ launches = {k: 0 for k in KERNELS}
 _loaded: dict[str, ctypes.CDLL] = {}
 # (library, card) pairs whose __constant__ base table is set
 _tabled: set[tuple[str, int]] = set()
+# (kernel, C entry point, card) -> its launcher
+_launchers: dict[tuple[str, str, int], object] = {}
 _mtx = threading.Lock()
 
 
@@ -179,49 +189,68 @@ def _set_base_table(lib: ctypes.CDLL, name: str, index: int) -> None:
         _tabled.add(key)
 
 
+def _make_launcher(kernel: str, fn: str, index: int):
+    """The launcher of ``fn`` for ``kernel`` on card ``index``: the
+    library loaded (built first if stale) and the C function bound once;
+    each call makes the card current only when another is, copies the
+    library's base table there before its first launch on that card, and
+    passes the card's current stream."""
+    import torch
+
+    name = KERNELS[kernel]
+    lib = library(name)
+    cfn = getattr(lib, fn)
+    table = (name, index) if name in BASE_TABLE_RADIX else None
+
+    def call(args):
+        cuda = torch.cuda
+        if cuda.current_device() == index:
+            if table is not None and table not in _tabled:
+                _set_base_table(lib, name, index)
+            return cfn(*args, cuda.current_stream(index).cuda_stream)
+        with cuda.device(index):
+            if table is not None and table not in _tabled:
+                _set_base_table(lib, name, index)
+            return cfn(*args, cuda.current_stream(index).cuda_stream)
+
+    with _mtx:
+        return _launchers.setdefault((kernel, fn, index), call)
+
+
 def launch(kernel: str, fn: str, t, n: int, *args) -> None:
     """Call one C entry point with ``args`` and the current stream of
     ``t``'s card, that card made current; count the launch and raise on
     the CUDA error it returns. ``n`` is the size the entry point launches
     over: at 0 it would launch nothing, so it is neither called nor
     counted."""
-    import torch
-
     if n <= 0:
         return
-    name = KERNELS[kernel]
-    lib = library(name)
     index = t.device.index
-    # switching cards costs host time on every launch: only when needed
-    with (contextlib.nullcontext() if index == torch.cuda.current_device()
-          else torch.cuda.device(index)):
-        if name in BASE_TABLE_RADIX:
-            _set_base_table(lib, name, index)
-        stream = torch.cuda.current_stream(t.device).cuda_stream
-        rc = getattr(lib, fn)(*args, stream)
+    call = _launchers.get((kernel, fn, index)) or _make_launcher(kernel, fn, index)
+    rc = call(args)
     if rc != 0:
         raise RuntimeError(f"{fn} failed: CUDA error {rc}")
     launches[kernel] += 1
 
 
-def same_card(*tensors) -> None:
-    """Raise unless every tensor lies on one card: a kernel reads each
-    pointer on the card it runs on."""
-    cards = {t.device for t in tensors}
-    if len(cards) != 1:
-        raise ValueError(f"kernel inputs on more than one device: {sorted(map(str, cards))}")
-
-
-def check(t, dtype, shape, name: str) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of this dtype and
-    shape (-1 = any size)."""
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if len(t.shape) != len(shape) or any(
-        s != -1 and s != d for s, d in zip(shape, t.shape)
-    ):
-        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
+def check_all(*specs) -> None:
+    """Raise unless every ``(tensor, dtype, shape, name)`` of ``specs`` is
+    a contiguous CUDA tensor of this dtype and shape (-1 = any size), all
+    on one card (a kernel reads each pointer on the card it runs on). One
+    pass over the tensors."""
+    card = specs[0][0].device
+    for t, dtype, shape, name in specs:
+        dev = t.device
+        if dev.type != "cuda":
+            raise ValueError(f"{name}: expected a CUDA tensor, got {dev}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+        got = t.shape
+        if got != shape and (len(got) != len(shape)
+                             or any(s != -1 and s != d for s, d in zip(shape, got))):
+            raise ValueError(f"{name}: expected shape {shape}, got {tuple(got)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
+        if dev != card:
+            cards = sorted({str(s[0].device) for s in specs})
+            raise ValueError(f"kernel inputs on more than one device: {cards}")

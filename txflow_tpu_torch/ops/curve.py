@@ -23,12 +23,25 @@ from . import _lib, field
 TABLE_WINDOW = 4
 TABLE_SIZE = 1 << TABLE_WINDOW  # 16
 NWINDOWS = 64  # 256 bits / 4
+# the verify kernel splits each scalar into four 64-bit quarters, one lane
+# each: quarter j is nibbles [48 - 16j, 64 - 16j) of the MSB-first nibbles
+QUARTERS = 4
+QUARTER_WINDOWS = NWINDOWS // QUARTERS  # 16
 
 # field multiplies of one [s]B + [h]A' and encode: per window 3 doublings
 # without T (7), one with T (8) and two PNiels additions (8 each); then the
 # inversion chain and the two affine products (the same in either field)
-MULS_PER_WINDOW = 3 * 7 + 8 + 2 * 8
-MULS_PER_DSM_ENCODE = NWINDOWS * MULS_PER_WINDOW + 265 + 2
+MULS_PER_DOUBLINGS = 3 * 7 + 8
+MULS_PER_WINDOW = MULS_PER_DOUBLINGS + 2 * 8
+MULS_PER_ENCODE = 265 + 2
+MULS_PER_DSM_ENCODE = NWINDOWS * MULS_PER_WINDOW + MULS_PER_ENCODE
+# the four-lane form: every lane runs 16 windows (the first without its
+# doublings of the identity) and both combine rounds (each a product by
+# 2d and one PNiels addition); then one encode a row
+MULS_PER_COMBINE_ROUND = 1 + 8
+MULS_PER_QUARTER_DSM_ENCODE = QUARTERS * (
+    QUARTER_WINDOWS * MULS_PER_WINDOW - MULS_PER_DOUBLINGS + 2 * MULS_PER_COMBINE_ROUND
+) + MULS_PER_ENCODE
 
 
 def ext_identity(batch_shape, device=None, fe_radix: int = 25):
@@ -71,6 +84,20 @@ def pniels_add(p, n, fe_radix: int = 25):
     G = F.fe_add(D, C)
     H = F.fe_add(B, A)
     return (F.fe_mul(E, F_), F.fe_mul(G, H), F.fe_mul(F_, G), F.fe_mul(E, H))
+
+
+def ext_to_pniels(p, fe_radix: int = 25):
+    """Extended -> PNiels (Y+X, Y-X, Z, 2d T): the form a lane's point
+    takes to be added to its partner's in the verify kernel's combine
+    rounds (csrc/ge25519.cuh:ge_p3_to_pniels)."""
+    F = field.ops(fe_radix)
+    X, Y, Z, T = p
+    return (F.fe_add(Y, X), F.fe_sub(Y, X), Z, F.fe_mul(T, _d2(fe_radix, T.device)))
+
+
+def _d2(fe_radix: int, device):
+    F = field.ops(fe_radix)
+    return torch.from_numpy(F.int_to_limbs(D2_INT)).to(device=device, dtype=F.DTYPE)
 
 
 def _entry(rows: torch.Tensor, fe_radix: int = 25):
@@ -127,6 +154,58 @@ def double_scalar_mul(s_nibbles, h_nibbles, base_table, a_tables, fe_radix: int 
                      lambda h: table_select(a_tables, h, fe_radix), fe_radix)
 
 
+def quarter_nibbles(nibbles: torch.Tensor) -> torch.Tensor:
+    """[B, 64] MSB-first nibbles -> [B, 4, 16]: row j holds quarter j's
+    nibbles [48 - 16j, 64 - 16j), MSB first (a lane's 16 windows)."""
+    j = torch.arange(QUARTERS, device=nibbles.device)
+    w = torch.arange(QUARTER_WINDOWS, device=nibbles.device)
+    cols = (NWINDOWS - QUARTER_WINDOWS * (j + 1))[:, None] + w[None, :]
+    return nibbles[:, cols]
+
+
+def double_scalar_mul_quarters(s_nibbles, h_nibbles, base_quarters, tables, quarter_tables,
+                               val_idx, fe_radix: int = 25):
+    """[s]B + [h]A' as the four-lane verify kernel computes it: each of
+    four lanes j runs 16 windows over quarter j of both scalars with the
+    tables of 2^(64j) B and 2^(64j) A' (the first window without its
+    doublings of the identity), then two combine rounds add the
+    lanes' points pairwise, lane j taking its partner j^1, then j^2, as a
+    PNiels entry. Returns lane 0's sum (Q0 + Q1) + (Q2 + Q3) as an Extended
+    point of [B, NLIMB] coordinates.
+
+    base_quarters: int32 [4, 16, 4, NLIMB] (``BASE_QUARTER_TABLES``);
+    tables: int32 [V, 16, 4, NLIMB] (quarter 0 of A'); quarter_tables:
+    int32 [V, 3, 16, 4, NLIMB] (quarters 1-3); val_idx: [B], clamped to
+    [0, V)."""
+    n_vals, nlimb = tables.shape[0], tables.shape[-1]
+    b = s_nibbles.shape[0]
+    s_q = quarter_nibbles(s_nibbles.to(torch.int64) & 15).reshape(b * QUARTERS, QUARTER_WINDOWS)
+    h_q = quarter_nibbles(h_nibbles.to(torch.int64) & 15).reshape(b * QUARTERS, QUARTER_WINDOWS)
+    lane = torch.arange(QUARTERS, device=s_q.device).repeat(b)
+    # every validator's four quarters as one [V * 4 * 16] row table
+    a_flat = torch.cat([tables[:, None], quarter_tables], dim=1).reshape(-1, 4, nlimb)
+    a_base = ((val_idx.to(torch.int64).clamp(0, n_vals - 1).repeat_interleave(QUARTERS)
+               * QUARTERS + lane) * TABLE_SIZE)
+    b_flat = base_quarters.reshape(-1, 4, nlimb)
+    b_base = lane * TABLE_SIZE
+    acc = ext_identity((b * QUARTERS,), device=s_q.device, fe_radix=fe_radix)
+    for w in range(QUARTER_WINDOWS):
+        if w:  # the first window's doublings would double the identity
+            acc = ext_double(acc, compute_t=False, fe_radix=fe_radix)
+            acc = ext_double(acc, compute_t=False, fe_radix=fe_radix)
+            acc = ext_double(acc, compute_t=False, fe_radix=fe_radix)
+            acc = ext_double(acc, compute_t=True, fe_radix=fe_radix)
+        acc = pniels_add(acc, _entry(b_flat[b_base + s_q[:, w]], fe_radix), fe_radix)
+        acc = pniels_add(acc, _entry(a_flat[a_base + h_q[:, w]], fe_radix), fe_radix)
+    q = tuple(c.reshape(b, QUARTERS, -1) for c in acc)
+    # round 1 on lanes 0 and 2 (partners 1 and 3), round 2 on lane 0
+    # (partner 2): the sums lane 0 of the kernel computes
+    r = pniels_add(tuple(c[:, 0::2] for c in q),
+                   ext_to_pniels(tuple(c[:, 1::2] for c in q), fe_radix), fe_radix)
+    return pniels_add(tuple(c[:, 0] for c in r),
+                      ext_to_pniels(tuple(c[:, 1] for c in r), fe_radix), fe_radix)
+
+
 def ext_encode(p, fe_radix: int = 25):
     """(frozen y [..., NLIMB], parity of frozen x [...])."""
     F = field.ops(fe_radix)
@@ -141,6 +220,20 @@ def base_table(device, fe_radix: int = 25) -> torch.Tensor:
     """The base point's window table [16, 4, NLIMB] of the field, on
     ``device``."""
     return torch.from_numpy(BASE_TABLES[fe_radix]).to(device)
+
+
+_base_quarters: dict[tuple[str, int], torch.Tensor] = {}
+
+
+def device_base_quarters(device, fe_radix: int = 25) -> torch.Tensor:
+    """The base point's four quarter tables [4, 16, 4, NLIMB] of the field
+    on ``device``, uploaded once per (device, field) and cached: the verify
+    kernel stages them into shared memory per block."""
+    key = (str(torch.device(device)), fe_radix)
+    t = _base_quarters.get(key)
+    if t is None:
+        t = _base_quarters.setdefault(key, torch.from_numpy(BASE_QUARTER_TABLES[fe_radix]).to(device))
+    return t
 
 
 def dsm_encode_plain(s_nibbles, h_nibbles, val_idx, tables, base=None, fe_radix: int = 25):
@@ -163,11 +256,12 @@ def dsm_encode(s_nibbles, h_nibbles, val_idx, tables, fe_radix: int = 25):
     if s_nibbles.device.type == "cpu":
         return dsm_encode_plain(s_nibbles, h_nibbles, val_idx, tables, fe_radix=fe_radix)
     n = s_nibbles.shape[0]
-    _lib.check(s_nibbles, torch.uint8, (n, NWINDOWS), "s_nibbles")
-    _lib.check(h_nibbles, torch.uint8, (n, NWINDOWS), "h_nibbles")
-    _lib.check(val_idx, torch.int32, (n,), "val_idx")
-    _lib.check(tables, torch.int32, (-1, TABLE_SIZE, 4, F.NLIMB), "tables")
-    _lib.same_card(s_nibbles, h_nibbles, val_idx, tables)
+    _lib.check_all(
+        (s_nibbles, torch.uint8, (n, NWINDOWS), "s_nibbles"),
+        (h_nibbles, torch.uint8, (n, NWINDOWS), "h_nibbles"),
+        (val_idx, torch.int32, (n,), "val_idx"),
+        (tables, torch.int32, (-1, TABLE_SIZE, 4, F.NLIMB), "tables"),
+    )
     if tables.shape[0] == 0:
         raise ValueError("tables: empty validator set")
     y = torch.empty((n, F.NLIMB), dtype=torch.int32, device=s_nibbles.device)
@@ -211,9 +305,82 @@ def build_pniels_table(pt, fe_radix: int = 25) -> np.ndarray:
     return np.stack(rows)
 
 
-# the base point's table in each field ([16, 4, 10] and [16, 4, 20]): the
-# __constant__ table of each verify library
-BASE_TABLES = {r: build_pniels_table(host_ed.BASE, r) for r in field.FIELDS}
+D2_INT = (2 * host_ed.D) % host_ed.P
+
+
+def _double_n(pt, n: int):
+    """2^n * pt (n >= 1) by n dedicated doublings, reduced mod p after each
+    product; T only from the last (the doubling ignores its input T)."""
+    P = host_ed.P
+    X, Y, Z = pt[0], pt[1], pt[2]
+    for _ in range(n):
+        A, B, C = X * X % P, Y * Y % P, 2 * Z * Z % P
+        H = A + B
+        E = H - (X + Y) * (X + Y) % P
+        G = A - B
+        F = C + G
+        X, Y, Z = E * F % P, G * H % P, F * G % P
+    return X, Y, Z, E * H % P
+
+
+def _batch_inverse(zs: list[int]) -> list[int]:
+    """Every z^-1 mod p with one exponentiation (Montgomery's trick)."""
+    P = host_ed.P
+    prefix, acc = [], 1
+    for z in zs:
+        prefix.append(acc)
+        acc = acc * z % P
+    inv = pow(acc, P - 2, P)
+    out = [0] * len(zs)
+    for i in range(len(zs) - 1, -1, -1):
+        out[i] = inv * prefix[i] % P
+        inv = inv * zs[i] % P
+    return out
+
+
+def ints_to_limbs(vals: list[int], fe_radix: int = 25) -> np.ndarray:
+    """Python ints in [0, 2^255) -> int32 [len, NLIMB] canonical limbs of
+    the field, in one vectorised pass over their bytes."""
+    raw = b"".join(v.to_bytes(32, "little") for v in vals)
+    return field.ops(fe_radix).bytes_to_limbs_np(np.frombuffer(raw, np.uint8).reshape(-1, 32))
+
+
+def build_quarter_tables(points, fe_radix: int = 25) -> np.ndarray:
+    """Window tables of the four scalar quarters of each point: int32
+    [N, 4, 16, 4, NLIMB], entry [n, j, k] = k * 2^(64j) * points[n] as an
+    affine PNiels entry in canonical limbs of the field (entry 0 the
+    identity). Quarter 0 is ``build_pniels_table`` of the point, bit for
+    bit. All 60 affine entries of every point share one inversion."""
+    P = host_ed.P
+    exts = []
+    for pt in points:
+        q = pt
+        for j in range(QUARTERS):
+            if j:
+                q = _double_n(q, NWINDOWS)
+            acc = host_ed.IDENTITY
+            for _ in range(1, TABLE_SIZE):
+                acc = host_ed.point_add(acc, q)
+                exts.append(acc)
+    vals = []
+    for (x, y, _z, _t), zinv in zip(exts, _batch_inverse([p[2] for p in exts])):
+        xa, ya = x * zinv % P, y * zinv % P
+        vals += [(ya + xa) % P, (ya - xa) % P, 1, D2_INT * xa % P * ya % P]
+    nlimb = field.ops(fe_radix).NLIMB
+    out = np.empty((len(points), QUARTERS, TABLE_SIZE, 4, nlimb), np.int32)
+    out[:, :, 0] = ints_to_limbs([1, 1, 1, 0], fe_radix)
+    if vals:
+        out[:, :, 1:] = ints_to_limbs(vals, fe_radix).reshape(
+            len(points), QUARTERS, TABLE_SIZE - 1, 4, nlimb)
+    return out
+
+
+# the base point's quarter tables in each field ([4, 16, 4, 10] and
+# [4, 16, 4, 20]): the four-lane verify kernel's base tables (staged in
+# shared memory); quarter 0 is the base table, the __constant__ table of
+# each verify library's one-lane kernels
+BASE_QUARTER_TABLES = {r: build_quarter_tables([host_ed.BASE], r)[0] for r in field.FIELDS}
+BASE_TABLES = {r: np.ascontiguousarray(q[0]) for r, q in BASE_QUARTER_TABLES.items()}
 BASE_TABLE = BASE_TABLES[25]
 
 

@@ -227,8 +227,7 @@ def fe_ops(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     as ``bytes_to_limbs_np`` gives)."""
     if a.device.type == "cpu":
         return fe_ops_plain(a, b)
-    _lib.check(a, torch.int32, (-1, NLIMB), "a")
-    _lib.check(b, torch.int32, (a.shape[0], NLIMB), "b")
+    _lib.check_all((a, torch.int32, (-1, NLIMB), "a"), (b, torch.int32, (a.shape[0], NLIMB), "b"))
     out = torch.empty((a.shape[0], 5, NLIMB), dtype=torch.int32, device=a.device)
     _lib.launch(
         "fe_ops", "txf_fe_ops", out, a.shape[0], a.data_ptr(), b.data_ptr(),

@@ -222,9 +222,7 @@ def fe13_ops(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     (each in [0, 2^13), as ``bytes_to_limbs_np`` gives)."""
     if a.device.type == "cpu":
         return fe13_ops_plain(a, b)
-    _lib.check(a, torch.int32, (-1, NLIMB), "a")
-    _lib.check(b, torch.int32, (a.shape[0], NLIMB), "b")
-    _lib.same_card(a, b)
+    _lib.check_all((a, torch.int32, (-1, NLIMB), "a"), (b, torch.int32, (a.shape[0], NLIMB), "b"))
     out = torch.empty((a.shape[0], 5, NLIMB), dtype=torch.int32, device=a.device)
     _lib.launch(
         "fe13_ops", "txf_fe_ops", out, a.shape[0], a.data_ptr(), b.data_ptr(),

@@ -86,14 +86,15 @@ def tally_into(stake, maj, valid, tx_slot, val_idx, powers, prior, quorum: int):
     b, s = valid.shape[0], prior.shape[0]
     wide = is_wide(powers)
     acc_t = torch.int64 if wide else torch.int32
-    _lib.check(valid, torch.int32, (b,), "valid")
-    _lib.check(tx_slot, torch.int32, (b,), "tx_slot")
-    _lib.check(val_idx, torch.int32, (b,), "val_idx")
-    _lib.check(powers, acc_t, (-1,), "powers")
-    _lib.check(prior, acc_t, (s,), "prior")
-    _lib.check(stake, torch.int32, (2 * s if wide else s,), "stake")
-    _lib.check(maj, torch.int32, (s,), "maj")
-    _lib.same_card(stake, maj, valid, tx_slot, val_idx, powers, prior)
+    _lib.check_all(
+        (stake, torch.int32, (2 * s if wide else s,), "stake"),
+        (maj, torch.int32, (s,), "maj"),
+        (valid, torch.int32, (b,), "valid"),
+        (tx_slot, torch.int32, (b,), "tx_slot"),
+        (val_idx, torch.int32, (b,), "val_idx"),
+        (powers, acc_t, (-1,), "powers"),
+        (prior, acc_t, (s,), "prior"),
+    )
     if powers.shape[0] == 0:
         raise ValueError("powers: empty validator set")
     # the kernel runs over the slots (it writes maj23 even with no votes)
@@ -113,26 +114,29 @@ def tally_into(stake, maj, valid, tx_slot, val_idx, powers, prior, quorum: int):
 
 
 def compact_step_packed(
-    s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables, powers,
+    s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables, quarter_tables, powers,
     prior_stake, quorum: int, fe_radix: int = 25,
 ) -> torch.Tensor:
     """The fused aggregation step: int32 packed ``[valid | stake | maj23]``
     (``packed_size``: B + 2S words, or B + 3S in the int64 form that int64
-    powers and prior select). Two kernel launches on a card (verify over
-    the ``fe_radix`` field, then tally, both writing into one buffer); the
+    powers and prior select). Two kernel launches on a card (the four-lane
+    verify over the ``fe_radix`` field and the epoch's ``tables`` and
+    ``quarter_tables``, then tally, both writing into one buffer); the
     plain versions for CPU tensors."""
     b, s = s_nib.shape[0], prior_stake.shape[0]
     wide = is_wide(powers)
     if s_nib.device.type == "cpu":
         valid = ed25519_batch.verify_kernel_gather_plain(
-            s_nib, h_nib, val_idx, tables, r_y, r_sign, pre_ok, fe_radix=fe_radix
+            s_nib, h_nib, val_idx, tables, quarter_tables, r_y, r_sign, pre_ok,
+            fe_radix=fe_radix,
         )
         stake, maj = tally_plain(valid, tx_slot, val_idx, powers, prior_stake, quorum)
         return torch.cat([valid.to(torch.int32), stake.view(torch.int32), maj])
     packed = torch.empty((packed_size(b, s, wide),), dtype=torch.int32, device=s_nib.device)
     valid = packed[:b]
     ed25519_batch.verify_into(
-        valid, s_nib, h_nib, val_idx, tables, r_y, r_sign, pre_ok, fe_radix=fe_radix
+        valid, s_nib, h_nib, val_idx, tables, quarter_tables, r_y, r_sign, pre_ok,
+        fe_radix=fe_radix,
     )
     sw = 2 * s if wide else s
     tally_into(
@@ -143,7 +147,7 @@ def compact_step_packed(
 
 
 def compact_step(
-    s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables, powers,
+    s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables, quarter_tables, powers,
     prior_stake, quorum: int, fe_radix: int = 25,
 ):
     """The fused step's three results unpacked: (valid bool [B], stake
@@ -151,7 +155,7 @@ def compact_step(
     [S])."""
     b, s = s_nib.shape[0], prior_stake.shape[0]
     packed = compact_step_packed(
-        s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables, powers,
+        s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables, quarter_tables, powers,
         prior_stake, quorum, fe_radix=fe_radix,
     )
     stake, maj = packed_stake(packed, b, s, is_wide(powers))
@@ -179,17 +183,21 @@ def tally_partial(valid, tx_slot, val_idx, powers, n_slots: int) -> torch.Tensor
         return tally_partial_plain(valid, tx_slot, val_idx, powers, n_slots)
     b = valid.shape[0]
     acc_t = torch.int64 if is_wide(powers) else torch.int32
-    _lib.check(valid, torch.int32, (b,), "valid")
-    _lib.check(tx_slot, torch.int32, (b,), "tx_slot")
     if val_idx is None:
-        _lib.check(powers, acc_t, (b,), "powers")
+        _lib.check_all(
+            (valid, torch.int32, (b,), "valid"),
+            (tx_slot, torch.int32, (b,), "tx_slot"),
+            (powers, acc_t, (b,), "powers"),
+        )
     else:
-        _lib.check(val_idx, torch.int32, (b,), "val_idx")
-        _lib.check(powers, acc_t, (-1,), "powers")
+        _lib.check_all(
+            (valid, torch.int32, (b,), "valid"),
+            (tx_slot, torch.int32, (b,), "tx_slot"),
+            (val_idx, torch.int32, (b,), "val_idx"),
+            (powers, acc_t, (-1,), "powers"),
+        )
         if powers.shape[0] == 0:
             raise ValueError("powers: empty validator set")
-        _lib.same_card(val_idx, valid)
-    _lib.same_card(valid, tx_slot, powers)
     out = torch.empty((n_slots,), dtype=acc_t, device=valid.device)
     kernel, fn = (("tally_partial64", "txf_tally_partial64") if acc_t == torch.int64
                   else ("tally_partial", "txf_tally_partial"))
@@ -228,15 +236,17 @@ def reduce_quorum(parts, prior, quorum: int, stake=None, maj=None):
         return stake, maj
     s = prior.shape[0]
     acc_t = torch.int64 if wide else torch.int32
-    _lib.check(parts, acc_t, (-1, s), "parts")
-    _lib.check(prior, acc_t, (s,), "prior")
     if stake is None:
+        _lib.check_all((parts, acc_t, (-1, s), "parts"), (prior, acc_t, (s,), "prior"))
         stake = torch.empty((s,), dtype=acc_t, device=parts.device)
         maj = torch.empty((s,), dtype=torch.int32, device=parts.device)
     else:
-        _lib.check(stake, torch.int32, (2 * s if wide else s,), "stake")
-    _lib.check(maj, torch.int32, (s,), "maj")
-    _lib.same_card(parts, prior, stake, maj)
+        _lib.check_all(
+            (parts, acc_t, (-1, s), "parts"),
+            (prior, acc_t, (s,), "prior"),
+            (stake, torch.int32, (2 * s if wide else s,), "stake"),
+            (maj, torch.int32, (s,), "maj"),
+        )
     kernel, fn = ("reduce_quorum64", "txf_reduce_quorum64") if wide else (
         "reduce_quorum", "txf_reduce_quorum")
     _lib.launch(
@@ -247,27 +257,26 @@ def reduce_quorum(parts, prior, quorum: int, stake=None, maj=None):
     return stake, maj
 
 
-def ring_add_plain(a, b) -> torch.Tensor:
-    return a + b
+def ring_add_plain(acc, b) -> torch.Tensor:
+    return acc.add_(b)
 
 
-def ring_add(a, b) -> torch.Tensor:
-    """One ring hop's accumulate (K7): int32 [S] a + b, on a's card. The
-    int64 form has no ring kernel: an int64 partial raises on a card."""
-    if a.device.type == "cpu":
-        return ring_add_plain(a, b)
-    s = a.shape[0]
-    _lib.check(a, torch.int32, (s,), "a")
-    _lib.check(b, torch.int32, (s,), "b")
-    _lib.same_card(a, b)
-    out = torch.empty_like(a)
-    _lib.launch("ring_add", "txf_add", out, s, a.data_ptr(), b.data_ptr(), out.data_ptr(), s)
-    return out
+def ring_add(acc, b) -> torch.Tensor:
+    """One ring hop's accumulate (K7), in place: acc += b over int32 [S]
+    on acc's card; returns ``acc``. The caller owns ``acc`` (``ring_tally``
+    starts from a copy of each partial). The int64 form has no ring
+    kernel: an int64 partial raises on a card."""
+    if acc.device.type == "cpu":
+        return ring_add_plain(acc, b)
+    s = acc.shape[0]
+    _lib.check_all((acc, torch.int32, (s,), "acc"), (b, torch.int32, (s,), "b"))
+    _lib.launch("ring_add", "txf_add", acc, s, acc.data_ptr(), b.data_ptr(), s)
+    return acc
 
 
 def compact_step_partial(
-    s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables, powers, n_slots: int,
-    fe_radix: int = 25,
+    s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables, quarter_tables, powers,
+    n_slots: int, fe_radix: int = 25,
 ):
     """One shard's half of the sharded fused step: (packed int32
     [``packed_size``] with ``valid`` written into its head and the
@@ -278,14 +287,16 @@ def compact_step_partial(
     size = packed_size(b, n_slots, is_wide(powers))
     if s_nib.device.type == "cpu":
         valid = ed25519_batch.verify_kernel_gather_plain(
-            s_nib, h_nib, val_idx, tables, r_y, r_sign, pre_ok, fe_radix=fe_radix
+            s_nib, h_nib, val_idx, tables, quarter_tables, r_y, r_sign, pre_ok,
+            fe_radix=fe_radix,
         ).to(torch.int32)
         packed = torch.cat([valid, torch.zeros(size - b, dtype=torch.int32)])
         return packed, tally_partial_plain(valid, tx_slot, val_idx, powers, n_slots)
     packed = torch.empty((size,), dtype=torch.int32, device=s_nib.device)
     valid = packed[:b]
     ed25519_batch.verify_into(
-        valid, s_nib, h_nib, val_idx, tables, r_y, r_sign, pre_ok, fe_radix=fe_radix
+        valid, s_nib, h_nib, val_idx, tables, quarter_tables, r_y, r_sign, pre_ok,
+        fe_radix=fe_radix,
     )
     return packed, tally_partial(valid, tx_slot, val_idx, powers, n_slots)
 

@@ -2,12 +2,13 @@
 
 Counterpart of ``txflow_tpu/parallel/mesh.py``. The vote axis of a padded
 batch is split into equal slices, one per shard; per-epoch constants
-(window tables, powers) and the prior stake are replicated on every
-shard's device. Each shard runs the verify kernel and a partial tally on
-its device's current stream; then every shard gathers all partials by
-peer copies and adds them with the prior (``txf_reduce_quorum``), so each
-holds the identical global stake and maj23 -- the JAX step's ``psum``.
-``ring_tally`` is the explicit ring instead: n-1 hops of copy-then-add.
+(window tables and their quarter tables, powers) and the prior stake are
+replicated on every shard's device. Each shard runs the verify kernel and
+a partial tally on its device's current stream; then every shard gathers
+all partials by peer copies and adds them with the prior
+(``txf_reduce_quorum``), so each holds the identical global stake and
+maj23 -- the JAX step's ``psum``. ``ring_tally`` is the explicit ring
+instead: n-1 hops of copy-then-add.
 
 One process drives all the cards: a function here launches on each card
 in turn and returns at once, so the cards run side by side. Work on two
@@ -155,30 +156,36 @@ def ring_tally(mesh: Mesh, partials: list) -> list:
     """All-reduce per-shard partials around the ring (counterpart of the
     JAX ``ppermute`` ring): n-1 hops, in each of which every shard copies
     the partial its left neighbour holds (shard i -> i+1 mod n) and adds
-    it into its running total (``ring_add``). Every shard ends with the
-    global sum; integer addition makes it equal the psum's bit for bit."""
+    it into its running total (``ring_add``, in place). The totals start
+    as copies of the partials: a hop's rotating partial may be the very
+    tensor another shard's total started from (at hop 0, or a shard on the
+    same device), and it must not change under that shard. Every shard
+    ends with the global sum; integer addition makes it equal the psum's
+    bit for bit."""
     n = mesh.size
     rotating = list(partials)
-    totals = list(partials)
+    totals = [p.clone() for p in partials]
     for _ in range(n - 1):
         rotating = [_peer(rotating[(i - 1) % n], mesh.devices[i]) for i in range(n)]
-        totals = [tally.ring_add(t, r) for t, r in zip(totals, rotating)]
+        for t, r in zip(totals, rotating):
+            tally.ring_add(t, r)
     return totals
 
 
 def _step_partials(mesh, fe_radix, s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot,
-                   tables, powers, prior_stake):
+                   tables, quarter_tables, powers, prior_stake):
     """Shard the per-vote inputs, replicate the constants, and run each
     shard's verify (over the ``fe_radix`` field) + partial tally. Returns
     (packed, partials, priors), per-shard lists; every host->device copy
     is issued before any launch."""
     vote = [mesh.shard(x) for x in (s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot)]
-    tables, powers, priors = (mesh.replicate(x) for x in (tables, powers, prior_stake))
+    tables, quarters, powers, priors = (
+        mesh.replicate(x) for x in (tables, quarter_tables, powers, prior_stake))
     s = priors[0].shape[0]
     packed, partials = [], []
     for i in range(mesh.size):
         p, part = tally.compact_step_partial(
-            *(v[i] for v in vote), tables[i], powers[i], s, fe_radix=fe_radix
+            *(v[i] for v in vote), tables[i], quarters[i], powers[i], s, fe_radix=fe_radix
         )
         packed.append(p)
         partials.append(part)
@@ -190,20 +197,20 @@ def sharded_compact_step_packed(mesh: Mesh, fe_radix: int | None = None):
     verify over the ``fe_radix`` field (25 or 13; None reads
     ``TXFLOW_FE_RADIX`` now, see ``ops/field.py``).
 
-    f(s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables, powers,
-    prior_stake, quorum) -> per-shard packed int32 ``[B/n + 2S]``
-    (``to_host`` gives ``[B + 2Sn]``), or ``[B/n + 3S]`` in the int64
-    form that int64 powers and prior select (``ops.tally.packed_stake``).
-    Per-vote inputs are full-batch tensors (B divisible by n) or per-shard
-    lists; tables, powers and prior are tensors to replicate or per-shard
-    lists."""
+    f(s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables,
+    quarter_tables, powers, prior_stake, quorum) -> per-shard packed int32
+    ``[B/n + 2S]`` (``to_host`` gives ``[B + 2Sn]``), or ``[B/n + 3S]`` in
+    the int64 form that int64 powers and prior select
+    (``ops.tally.packed_stake``). Per-vote inputs are full-batch tensors
+    (B divisible by n) or per-shard lists; tables, quarter tables, powers
+    and prior are tensors to replicate or per-shard lists."""
     fe_radix = field.resolve(fe_radix)
 
-    def f(s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables, powers,
+    def f(s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables, quarter_tables, powers,
           prior_stake, quorum):
         packed, partials, priors = _step_partials(
             mesh, fe_radix, s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables,
-            powers, prior_stake,
+            quarter_tables, powers, prior_stake,
         )
         s = priors[0].shape[0]
         sw = 2 * s if tally.is_wide(powers) else s
@@ -224,7 +231,7 @@ def sharded_compact_step(mesh: Mesh, fe_radix: int | None = None):
 
     def f(*args):
         packed = packed_fn(*args)
-        prior, wide = args[9], tally.is_wide(args[8])
+        prior, wide = args[10], tally.is_wide(args[9])
         s = (prior[0] if isinstance(prior, (list, tuple)) else prior).shape[0]
         bs = packed[0].shape[0] - tally.packed_size(0, s, wide)
         unpacked = [tally.packed_stake(p, bs, s, wide) for p in packed]
@@ -243,11 +250,11 @@ def sharded_ring_step(mesh: Mesh, fe_radix: int | None = None):
     outputs)."""
     fe_radix = field.resolve(fe_radix)
 
-    def f(s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables, powers,
+    def f(s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables, quarter_tables, powers,
           prior_stake, quorum):
         packed, partials, priors = _step_partials(
             mesh, fe_radix, s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables,
-            powers, prior_stake,
+            quarter_tables, powers, prior_stake,
         )
         s = priors[0].shape[0]
         totals = ring_tally(mesh, partials)

@@ -243,18 +243,21 @@ def _next_pow2(n: int) -> int:
 class _DeviceStage:
     """One epoch's device constants, bundled so a submit reads a single
     attribute and never mixes one epoch's tables with another's powers.
-    ``pub_keys``/``val_set`` are the real set; the tables and powers are
-    padded to the verifier's validator capacity. On a mesh, the device
-    tables and powers are per-shard lists, one copy on each card."""
+    ``pub_keys``/``val_set`` are the real set; the tables, their quarter
+    tables (the four-lane verify kernel reads both) and the powers are
+    padded to the verifier's validator capacity. On a mesh, each device
+    tensor is a per-shard list, one copy on each card."""
 
-    __slots__ = ("val_set", "pub_keys", "epoch", "powers", "tables_dev", "powers_dev", "wide")
+    __slots__ = ("val_set", "pub_keys", "epoch", "powers", "tables_dev", "quarters_dev",
+                 "powers_dev", "wide")
 
-    def __init__(self, val_set, pub_keys, epoch, powers, tables_dev, powers_dev):
+    def __init__(self, val_set, pub_keys, epoch, powers, tables_dev, quarters_dev, powers_dev):
         self.val_set = val_set
         self.pub_keys = pub_keys
         self.epoch = epoch
         self.powers = powers
         self.tables_dev = tables_dev
+        self.quarters_dev = quarters_dev
         self.powers_dev = powers_dev
         # the int64 tally: powers (and so prior and stake) are int64
         self.wide = powers.dtype == np.int64
@@ -263,8 +266,9 @@ class _DeviceStage:
 class DeviceVoteVerifier:
     """Batched verify + tally on one device, or sharded over ``mesh``.
 
-    Per-epoch constants (the -A window tables and the voting powers) are
-    uploaded once per validator set -- to every card of the mesh -- padded
+    Per-epoch constants (the -A window tables, their quarter tables and
+    the voting powers) are uploaded once per validator set -- to every
+    card of the mesh -- padded
     to ``capacity`` (the next power of two >= the set size, at least 4),
     so ``restage()`` swaps them for a new set with host->device copies and
     nothing rebuilt. With a mesh of n shards every padded batch is a
@@ -327,12 +331,15 @@ class DeviceVoteVerifier:
         powers[: len(pub_keys)] = val_set.powers_array()
         if self.mesh is None:
             tables_dev = epoch.device_tables(self.device)
+            quarters_dev = epoch.device_quarter_tables(self.device)
             powers_dev = torch.from_numpy(powers).to(self.device)
         else:
             # every card gets its copy before the caller swaps the stage in
             tables_dev = [epoch.device_tables(d) for d in self.mesh.devices]
+            quarters_dev = [epoch.device_quarter_tables(d) for d in self.mesh.devices]
             powers_dev = self.mesh.replicate(torch.from_numpy(powers))
-        return _DeviceStage(val_set, pub_keys, epoch, powers, tables_dev, powers_dev)
+        return _DeviceStage(val_set, pub_keys, epoch, powers, tables_dev, quarters_dev,
+                            powers_dev)
 
     def restage(self, new_val_set: ValidatorSet) -> bool:
         """Swap the per-epoch device constants for a new validator set in
@@ -407,6 +414,7 @@ class DeviceVoteVerifier:
             dev(_pad(batch.pre_ok, pad)),
             dev(slot),
             st.tables_dev,
+            st.quarters_dev,
             st.powers_dev,
             dev(prior),
             int(q),
