@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py                # one card: build, kernels, slice, K8, int64, committee, mesh
+    python3 chip_smoke.py                # one card: build, kernels, slice (serial, threaded), K8, int64, committee, mesh (serial, threaded)
     python3 chip_smoke.py --cross-card   # two or more cards: the kernels on each
-    python3 chip_smoke.py --mesh         # four cards: K5/K7 and the mesh cell over them
+    python3 chip_smoke.py --mesh         # four cards: K5/K7 and the mesh cell over them (serial, threaded)
 
 1. Builds the CUDA sources of txflow_tpu_torch/csrc with nvcc (one process
    per source, in parallel) and prints the card and the build time.
@@ -99,8 +99,31 @@ copy of the verify library's __constant__ base table, so K1, K2 and K3
 run on every visible card, the last card first, each held against its
 plain version on the CPU and K3 also against the golden model.
 
-``--mesh`` runs only phase 5 and its kernel rows, over 4 distinct cards:
-the engine builds its own mesh from mesh_devices=4 (make_mesh).
+8. The threaded engine, after phase 3 and after phase 5: the slice cell's
+   votes, then the mesh cell's, as fresh copies (cold sign-bytes caches)
+   through TxFlow.start() until quiescent, then stop():
+   EngineConfig(pipeline_depth=2, pipeline_commits=True, staging_ring=2,
+   host_prep_backend="process", host_prep_workers=os.cpu_count()). start()
+   builds the kernels and runs one all-padding warm step; the loop keeps
+   two tickets in flight, a committer thread commits, worker processes
+   encode sign bytes and run the compact prep, and each ticket (four parts
+   on the mesh) reads back on a side CUDA stream into pinned memory.
+   The slice runs once more with pipeline_commits=False (commits inline
+   on the loop thread), what the committer thread costs or saves, and then
+   serially again on cold copies: serial, threaded, threaded, serial in
+   one call. Every timed run starts after gc.collect() and reports the
+   collector's seconds.
+   Checks: certificate rows and app digest equal to the serial engine's
+   (phase 3's run; the one-card engine of phase 5), every readback through
+   the side stream (sync_readbacks 0), every kernel of the path launched,
+   and stop() leaving no thread, worker, segment or ring. Prints wall time
+   and committed votes/s beside the serial engine's of this call, the
+   first step's time against the rest, busy seconds per thread, the prep
+   pool's wait, the ring's hidden_s and the device's busy share.
+
+``--mesh`` runs only phase 5, its kernel rows and the threaded mesh cell,
+over 4 distinct cards: the engine builds its own mesh from mesh_devices=4
+(make_mesh).
 
 Parent-against-this comparisons (the small kernels' launch times, every
 phase's certificates and app digests) are txflow_tpu_torch/parent_ab.py.
@@ -108,6 +131,7 @@ phase's certificates and app digests) are txflow_tpu_torch/parent_ab.py.
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import os
@@ -115,6 +139,7 @@ import random
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -633,10 +658,10 @@ def quarter_checks(card: dict, k3: dict, dev, ptx: dict) -> dict:
 # Phase 3: the slice
 
 
-def _node(corpus: Corpus, config: EngineConfig, verifier=None, val_set=None):
+def _node(corpus: Corpus, config: EngineConfig, verifier=None, val_set=None, votes=None):
     """One node's pools, stores and engine over ``val_set`` (default the
-    corpus' set), the corpus' txs in the mempool and its votes in the vote
-    pool in arrival order."""
+    corpus' set), the corpus' txs in the mempool and its votes (or
+    ``votes``, copies of them) in the vote pool in arrival order."""
     conns = AppConns(KVStoreApplication())
     n_txs, n_votes = len(corpus.txs), len(corpus.votes)
     mempool = Mempool(MempoolConfig(size=2 * n_txs, cache_size=4 * n_txs), conns.mempool)
@@ -646,32 +671,57 @@ def _node(corpus: Corpus, config: EngineConfig, verifier=None, val_set=None):
     flow = TxFlow(CHAIN_ID, HEIGHT, val_set or corpus.val_set, votepool, mempool, commitpool,
                   TxExecutor(conns.consensus, mempool), store, config=config, verifier=verifier)
     require(not any(mempool.check_tx_many(corpus.txs)), "mempool rejected a tx")
-    require(not any(votepool.check_tx_many([corpus.votes[i] for i in corpus.order])),
+    votes = corpus.votes if votes is None else votes
+    require(not any(votepool.check_tx_many([votes[i] for i in corpus.order])),
             "vote pool rejected a vote")
     return flow, store, conns.app
 
 
+class GcClock:
+    """Host seconds the cyclic garbage collector ran while installed, and
+    its collections by generation (``gc.callbacks``)."""
+
+    def __enter__(self):
+        self.s, self.collections, self._t = 0.0, [0, 0, 0], 0.0
+        gc.collect()  # every timed run starts with empty young generations
+        gc.callbacks.append(self._cb)
+        return self
+
+    def _cb(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        else:
+            self.s += time.perf_counter() - self._t
+            self.collections[info["generation"]] += 1
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._cb)
+
+
 def _drive(flow, dev) -> dict:
     """TxFlow.step() until the pool is drained: host stages, device time
-    per step, step times; the outcome is read by the caller."""
+    per step, step times, the collector's time; the outcome is read by
+    the caller."""
     tally_step = tally.compact_step_packed
     stages, device_ms = _time_stages(flow, dev)
     step_s = []
     try:
-        t0 = time.perf_counter()
-        while True:
-            ts = time.perf_counter()
-            if not flow.step():
-                break
-            step_s.append(time.perf_counter() - ts)
-        wall = time.perf_counter() - t0
+        with GcClock() as gcc:
+            t0 = time.perf_counter()
+            while True:
+                ts = time.perf_counter()
+                if not flow.step():
+                    break
+                step_s.append(time.perf_counter() - ts)
+            wall = time.perf_counter() - t0
     finally:
         tally.compact_step_packed = tally_step
     stage_ms = {k: v * 1e3 for k, v in stages.items()}
     stage_ms["route"] -= stage_ms["commit"]  # commits run inside routing
     return {"steps": len(step_s), "step_s": step_s, "p50_step_ms": statistics.median(step_s) * 1e3,
             "wall_s": wall, "stage_ms_total": stage_ms, "device_ms_per_step": device_ms,
-            "device_busy_share": sum(device_ms) / (sum(step_s) * 1e3)}
+            "device_busy_share": sum(device_ms) / (sum(step_s) * 1e3),
+            "gc_s": gcc.s, "gc_collections": gcc.collections}
 
 
 def _outcome(corpus: Corpus, flow, store, app, scale: int = 1) -> dict:
@@ -803,16 +853,31 @@ def _count_host_verifies() -> tuple[dict, object]:
     return calls, restore
 
 
-def _time_stages(flow, dev) -> tuple[dict, list]:
+def _pair_ms(pairs) -> float:
+    """The slowest card's milliseconds between its pair of events."""
+    for _, e1 in pairs:
+        e1.synchronize()
+    return max(e0.elapsed_time(e1) for e0, e1 in pairs)
+
+
+def _time_stages(flow, dev, by_thread: dict | None = None, route_ends: list | None = None,
+                 events: list | None = None) -> tuple[dict, list]:
     """Wrap the engine's stage methods on this instance to add up host
     seconds per stage (drain + sign bytes; host prep + H2D + launch;
-    readback wait; routing; commit effects), and record CUDA events around
-    the device step of each step: the fused verify + tally kernels, or on
-    a mesh the whole sharded step (the H2D copies of its shards included),
-    read on every card of the mesh and the slowest card kept."""
+    readback wait; routing; commit effects, inline or on the committer
+    thread), and record CUDA events around the device step of each step:
+    the fused verify + tally kernels, or on a mesh the whole sharded step
+    (the H2D copies of its shards included), read on every card of the
+    mesh and the slowest card kept; each collect reads the oldest pair
+    (tickets are collected in submission order). With ``by_thread`` the
+    seconds are also added up per thread (stages on two threads overlap:
+    their sum is no serial time), and ``route_ends`` gets the host clock
+    at the end of each routing. ``events`` (the FIFO of event pairs not
+    yet read) lets a caller read a pair that no collect reads, such as
+    the warm step's."""
     stages = {"drain": 0.0, "submit": 0.0, "collect": 0.0, "route": 0.0, "commit": 0.0}
     device_ms: list[float] = []
-    events: list = []
+    events = [] if events is None else events
     mesh = getattr(flow.verifier, "mesh", None)
     cards = list(dict.fromkeys(mesh.devices)) if mesh is not None else [dev]
 
@@ -822,7 +887,14 @@ def _time_stages(flow, dev) -> tuple[dict, list]:
             try:
                 return fn(*a, **k)
             finally:
-                stages[stage] += time.perf_counter() - t
+                t1 = time.perf_counter()
+                stages[stage] += t1 - t
+                if by_thread is not None:
+                    mine = by_thread.setdefault(threading.current_thread().name,
+                                                dict.fromkeys(stages, 0.0))
+                    mine[stage] += t1 - t
+                if stage == "route" and route_ends is not None:
+                    route_ends.append(t1)
         return wrapped
 
     def with_events(fn):
@@ -836,17 +908,18 @@ def _time_stages(flow, dev) -> tuple[dict, list]:
             out = fn(*a, **k)
             for (_, e1), c in zip(pairs, cards):
                 e1.record(torch.cuda.current_stream(c))
-            events.append(pairs)
+            events.append((threading.current_thread().name, pairs))
             return out
         return device_step
 
     def collect(prep, ticket, _fn=timed("collect", flow._collect)):
         res = _fn(prep, ticket)
-        while events:
-            pairs = events.pop(0)
-            for _, e1 in pairs:
-                e1.synchronize()
-            device_ms.append(max(e0.elapsed_time(e1) for e0, e1 in pairs))
+        # the oldest pair recorded on this thread: tickets are collected
+        # in submission order by the thread that submitted them
+        me = threading.current_thread().name
+        i = next((i for i, (who, _) in enumerate(events) if who == me), None)
+        if i is not None:
+            device_ms.append(_pair_ms(events.pop(i)[1]))
         return res
 
     if mesh is not None:
@@ -858,7 +931,200 @@ def _time_stages(flow, dev) -> tuple[dict, list]:
     flow._collect = collect
     flow._route_result = timed("route", flow._route_result)
     flow._commit_effects = timed("commit", flow._commit_effects)
+    flow._commit_batch = timed("commit", flow._commit_batch)
     return stages, device_ms
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the threaded engine -- TxFlow.start()/stop() serving through the
+# pipelined loop, the committer thread, process-pool host prep and the
+# readback ring on a side CUDA stream
+
+
+def _cold_copies(votes: list) -> list:
+    """New vote objects: cold sign-bytes and wire caches, as the first
+    serial run of a corpus sees them."""
+    return [TxVote(v.height, v.tx_hash, v.tx_key, v.timestamp_ns, v.validator_address,
+                   v.signature) for v in votes]
+
+
+def _wait_quiescent(flow, timeout: float) -> float:
+    """Poll until the engine has visited every pool entry and holds no
+    retry, no unrouted batch and no unapplied commit, three polls in a
+    row; returns the host clock of the first of them. A failed engine
+    thread raises here."""
+    deadline = time.perf_counter() + timeout
+    first, stable = None, 0
+    while time.perf_counter() < deadline:
+        require(flow.error is None, f"an engine thread failed: {flow.error!r}")
+        # cheap reads: this thread shares the interpreter lock with the engine's
+        idle = (flow._drain_cursor >= flow.tx_vote_pool.seq() and not flow._retry
+                and flow._pipe_in_flight == 0 and flow.commits_drained())
+        now = time.perf_counter()
+        if not idle:
+            first, stable = None, 0
+        else:
+            first = now if first is None else first
+            stable += 1
+            if stable >= 3:
+                return first
+        time.sleep(0.005)
+    raise AssertionError("the threaded engine never drained")
+
+
+def threaded_phase(corpus: Corpus, dev, ref: dict, serial: dict, label: str, mesh=None,
+                   engine_builds_mesh: bool = False, max_batch: int = MAX_BATCH,
+                   max_slots: int = 4096, pipeline_commits: bool = True) -> dict:
+    """The corpus' votes (cold copies) through TxFlow.start() / stop():
+    pipeline_depth 2, the committer thread, host prep on a process pool of
+    os.cpu_count() workers, readback through the ring (depth 2). On a mesh
+    (4 shards; the engine builds it from mesh_devices when
+    ``engine_builds_mesh``) each ticket has one part per shard. Checks:
+    the committed set, certificate rows and app digest equal ``ref`` (the
+    serial engine's), every ticket read back on the side streams, every
+    kernel of the path launched, no host verify, and stop() leaving no
+    thread, worker process, segment or ring. ``serial`` is the serial
+    run of the same cell in this call, printed beside. With
+    ``pipeline_commits`` False the routing commits inline (no committer
+    thread): the diagnostic run that shows what the committer costs."""
+    workers = os.cpu_count() or 1
+    cfg = EngineConfig(max_batch=max_batch, max_slots=max_slots, device=str(dev), fe_radix=25,
+                       mesh_devices=MESH_SHARDS if mesh is not None else 0,
+                       pipeline_depth=2, pipeline_commits=pipeline_commits, staging_ring=2,
+                       host_prep_backend="process", host_prep_workers=workers)
+    verifier = (DeviceVoteVerifier(corpus.val_set, mesh=mesh, fe_radix=25, staging_ring=2)
+                if mesh is not None and not engine_builds_mesh else None)
+    flow, store, app = _node(corpus, cfg, verifier, votes=_cold_copies(corpus.votes))
+    if mesh is not None:
+        require(flow.verifier.mesh is not None and flow.verifier.mesh.devices == mesh.devices,
+                f"{label}: engine is not on the mesh")
+    by_thread: dict = {}
+    route_ends: list = []
+    events: list = []
+    tally_step = tally.compact_step_packed
+    _, device_ms = _time_stages(flow, dev, by_thread, route_ends, events)
+    cpu_s: dict = {}  # CPU seconds of each engine thread (time.thread_time)
+
+    def on_cpu_clock(name, fn):
+        def run():
+            c0 = time.thread_time()
+            try:
+                fn()
+            finally:
+                cpu_s[name] = time.thread_time() - c0
+        return run
+
+    flow._run = on_cpu_clock("txflow", flow._run)
+    flow._committer_run = on_cpu_clock("txflow-commit", flow._committer_run)
+    host_calls, restore_host = _count_host_verifies()
+    _lib.reset_launches()
+    try:
+        with GcClock() as gcc:
+            t_start = time.perf_counter()
+            flow.start()
+            t0 = time.perf_counter()
+            ring, pool = flow.verifier._ring, flow._host_pool
+            t_end = _wait_quiescent(flow, timeout=300.0)
+        stats = flow.pipeline_stats()
+        ring_stats, pool_stats = ring.stats(), pool.stats()
+    finally:
+        restore_host()
+        tally.compact_step_packed = tally_step
+        flow.stop()  # raises a thread's error
+    launches = dict(_lib.launches)
+    steps = stats["steps"]
+    shards = MESH_SHARDS if mesh is not None else 1
+    log(f"{label}: {steps} steps + the warm step, {workers} host-prep workers "
+        f"(os.cpu_count(), {pool_stats['processes']} processes, {pool_stats['mp_method']}), "
+        f"launches {launches}, host verifies {host_calls['n']}; ring {ring_stats}")
+    # every kernel of the path ran, once a shard a step and once for the warm step
+    if mesh is None:
+        want = {"verify": steps + 1, "tally": steps + 1}
+    else:
+        want = {k: shards * (steps + 1) for k in ("verify", "tally_partial", "reduce_quorum")}
+    require({k: launches[k] for k in want} == want, f"{label}: launches {launches}, want {want}")
+    require(host_calls["n"] == 0, f"{label}: a host (scalar) verify ran")
+    require(ring_stats["stream_readbacks"] == steps + 1 and ring_stats["sync_readbacks"] == 0
+            and ring_stats["host_readbacks"] == 0 and ring_stats["in_flight"] == 0,
+            f"{label}: a readback missed the side stream: {ring_stats}")
+    require(pool_stats["backend"] == "process" and pool_stats["shm_calls"] >= steps,
+            f"{label}: host prep did not run on the process pool: {pool_stats}")
+    require(pool.alive_workers() == 0 and pool.stats()["live_segments"] == 0
+            and flow._thread is None and flow._committer is None
+            and flow.verifier.staging_stats() is None,
+            f"{label}: stop() left a worker, segment, thread or ring behind")
+    require(len(device_ms) == steps, f"{label}: {len(device_ms)} timed device steps for {steps}")
+    warm_pairs = [pairs for who, pairs in events if who == threading.current_thread().name]
+    require(len(warm_pairs) == 1 and len(events) == 1, f"{label}: {len(events)} untimed steps")
+    warm_device_ms = _pair_ms(warm_pairs[0]) if warm_pairs else None
+    res = _outcome(corpus, flow, store, app)
+    require(res["rows"] == ref["rows"], f"{label}: certificate bytes differ from the serial engine")
+    require(res["digest"] == ref["digest"], f"{label}: app digest differs from the serial engine")
+
+    wall = t_end - t0
+    step_s = [b - a for a, b in zip([t0] + route_ends[:-1], route_ends)]
+    threads = {name: {k: v * 1e3 for k, v in st.items()} for name, st in by_thread.items()}
+    busy_s = {name: sum(st.values()) for name, st in by_thread.items()}
+    out = {"votes": len(corpus.votes), "txs": len(corpus.txs), "validators": corpus.n_vals,
+           "shards": shards, "devices": [str(d) for d in (mesh.devices if mesh else [dev])],
+           "host_prep_workers": workers, "pipeline_depth": 2, "staging_ring": 2,
+           "start_s": t0 - t_start, "warm_s": flow.warm_s, "warm_device_ms": warm_device_ms,
+           "steps": steps, "wall_s": wall, "step_s": step_s,
+           "first_step_ms": step_s[0] * 1e3 if step_s else None,
+           "later_steps_ms": [x * 1e3 for x in step_s[1:]],
+           "device_ms_per_step": device_ms, "device_busy_share": sum(device_ms) / (wall * 1e3),
+           "committed_txs": res["committed_txs"], "committed_votes": res["committed_votes"],
+           "committed_votes_per_s": res["committed_votes"] / wall,
+           "serial_committed_votes_per_s": serial["committed_votes_per_s"],
+           "serial_wall_s": serial["wall_s"],
+           "speedup_over_serial": serial["wall_s"] / wall,
+           "stage_ms_by_thread": threads, "busy_s_by_thread": busy_s,
+           "cpu_s_by_thread": cpu_s, "pipeline_commits": pipeline_commits,
+           "gc_s_with_start": gcc.s, "gc_collections": gcc.collections,
+           "prep_pool_wait_s": stats["prep_pool_wait_s"], "pool_proc_wait_s": pool_stats["proc_wait_s"],
+           "pool": pool_stats, "ring": ring_stats, "hidden_s": ring_stats["hidden_s"],
+           "pipeline": {k: v for k, v in stats.items() if k not in ("host_prep", "staging")},
+           "launches": launches, "certificates_equal_serial": True, "digest_equal_serial": True}
+    log(f"{label}: wall {wall:.3f} s, {out['committed_votes_per_s']:.0f} committed votes/s against "
+        f"the serial engine's {serial['committed_votes_per_s']:.0f} in this call "
+        f"({out['speedup_over_serial']:.2f}x); start {out['start_s']:.2f} s (warm step "
+        f"{flow.warm_s:.3f} s, its device time {warm_device_ms} ms)")
+    log(f"{label}: first step {out['first_step_ms']:.1f} ms, then "
+        + ", ".join(f"{x:.1f}" for x in out["later_steps_ms"]) + " ms; device ms per step "
+        + ", ".join(f"{d:.2f}" for d in device_ms)
+        + f" = {out['device_busy_share'] * 100:.2f}% of the wall time")
+    log(f"{label}: busy s by thread (wall time inside its stages) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in busy_s.items())
+        + "; CPU s by thread (from start() to stop()) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in cpu_s.items())
+        + f"; prep-pool wait {stats['prep_pool_wait_s']:.3f} s (sign bytes), "
+        f"{pool_stats['proc_wait_s']:.3f} s (all pool calls); ring hidden_s "
+        f"{ring_stats['hidden_s']:.6f} of readback_s {ring_stats['readback_s']:.6f}, "
+        f"sync_readbacks {ring_stats['sync_readbacks']}; garbage collector {gcc.s:.3f} s "
+        f"(start() included), collections by generation {gcc.collections}")
+    log(f"{label}: stage ms by thread {json.dumps(threads)}")
+    log(f"{label}: {res['committed_txs']}/{len(corpus.txs)} txs committed as constructed; "
+        "certificate bytes and app digest equal to the serial engine's")
+    return out
+
+
+def serial_again(corpus: Corpus, dev, ref: dict, label: str) -> dict:
+    """The serial engine once more on cold copies of the corpus' votes,
+    after the threaded runs: the same call's second serial reading
+    (serial, threaded, serial), its certificates and app digest equal to
+    ``ref``."""
+    flow, store, app = _node(corpus, EngineConfig(max_batch=MAX_BATCH, device=str(dev),
+                                                  fe_radix=25), votes=_cold_copies(corpus.votes))
+    run = _drive(flow, dev)
+    res = _outcome(corpus, flow, store, app)
+    require(res["rows"] == ref["rows"] and res["digest"] == ref["digest"],
+            f"{label}: certificates or app digest differ from the first serial run")
+    run["committed_votes_per_s"] = res["committed_votes"] / run["wall_s"]
+    log(f"{label}: wall {run['wall_s']:.3f} s, {run['committed_votes_per_s']:.0f} committed "
+        f"votes/s, p50 step {run['p50_step_ms']:.1f} ms; host stages (ms) "
+        + ", ".join(f"{k} {v:.1f}" for k, v in run["stage_ms_total"].items())
+        + f"; garbage collector {run['gc_s']:.3f} s {run['gc_collections']}")
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -1347,7 +1613,8 @@ class FirstBatch:
             t.s_nibbles, t.h_nibbles, t.a_tables, t.r_y, t.r_sign, t.pre_ok))
 
 
-def mesh_phase(corpus: Corpus, mesh: Mesh, engine_builds_mesh: bool) -> tuple[dict, FirstBatch]:
+def mesh_phase(corpus: Corpus, mesh: Mesh, engine_builds_mesh: bool) -> tuple[dict, FirstBatch,
+                                                                                dict]:
     """The mesh-sharded serving step, then the same votes on one card.
 
     The mesh path, between one reset and one read of the launch counts:
@@ -1359,7 +1626,8 @@ def mesh_phase(corpus: Corpus, mesh: Mesh, engine_builds_mesh: bool) -> tuple[di
     verify_batch on one shard's worth) and the ring step. Each of those is
     checked against the construction. Then the one-card engine at
     max_batch MESH_BATCH: certificate bytes and app digest must equal the
-    mesh run's."""
+    mesh run's. Returns (the phase's numbers, the first batch, the one-card
+    engine's outcome)."""
     dev0 = mesh.devices[0]
     cfg = EngineConfig(max_batch=MESH_BATCH, max_slots=MESH_SLOTS, mesh_devices=MESH_SHARDS,
                        fe_radix=25)
@@ -1457,7 +1725,7 @@ def mesh_phase(corpus: Corpus, mesh: Mesh, engine_builds_mesh: bool) -> tuple[di
     log(f"mesh: {mesh_out['committed_txs']}/{len(corpus.txs)} txs committed as constructed, "
         f"{mesh_out['committed_votes']} certificate votes; certificate bytes and app digest "
         f"equal to the one-card run's")
-    return out, fb
+    return out, fb, one_out
 
 
 def launch_path_split(acc, b, reps: int = 2000) -> dict:
@@ -2076,6 +2344,10 @@ def _mesh_corpus() -> Corpus:
     return corpus
 
 
+def _threaded_json(run: dict) -> dict:
+    return {k: v for k, v in run.items() if k not in ("step_s", "stage_ms_by_thread", "pool")}
+
+
 def _mesh_json(mp: dict) -> dict:
     return {"mesh": {k: ({kk: vv for kk, vv in v.items() if kk != "step_s"} if isinstance(v, dict)
                          else v) for k, v in mp.items()}}
@@ -2105,12 +2377,17 @@ def main() -> int:
                 f"--mesh needs {MESH_SHARDS} cards, {torch.cuda.device_count()} visible")
         mesh = make_mesh(MESH_SHARDS)  # distinct cards, as the engine builds it
         mcorpus = _mesh_corpus()
-        mp, fb = mesh_phase(mcorpus, mesh, engine_builds_mesh=True)
+        mp, fb, one_res = mesh_phase(mcorpus, mesh, engine_builds_mesh=True)
         rows = mesh_rows(card, mcorpus, mesh, fb, mp["launches"], mp["mesh"]["steps"])
+        thm = threaded_phase(mcorpus, mesh.devices[0], one_res, mp["mesh"], "threaded mesh",
+                             mesh=mesh, engine_builds_mesh=True, max_batch=MESH_BATCH,
+                             max_slots=MESH_SLOTS)
         os.makedirs("chiprun_out", exist_ok=True)
         with open(os.path.join("chiprun_out", "chip_smoke_mesh.json"), "w") as f:
-            json.dump({"card": card, "kernels": rows, "mesh": mp}, f, indent=1)
+            json.dump({"card": card, "kernels": rows, "mesh": mp, "threaded_mesh": thm}, f,
+                      indent=1)
         log(json.dumps(_mesh_json(mp)))
+        log(json.dumps({"threaded_mesh": _threaded_json(thm)}))
         log(json.dumps({"kernels": rows}))
         print(json.dumps({"ok": True, "device": device}))
         return 0
@@ -2130,6 +2407,10 @@ def main() -> int:
     rows, k3 = kernel_phase(card, corpus, dev)
     qc = quarter_checks(card, k3, dev, ptx)
     sl, sl_res = slice_phase(corpus, dev)
+    ths = threaded_phase(corpus, dev, sl_res, sl, "threaded slice")
+    ths_inline = threaded_phase(corpus, dev, sl_res, sl, "threaded slice, commits inline",
+                                pipeline_commits=False)
+    sl_again = serial_again(corpus, dev, sl_res, "serial slice again")
     by_name = {"K1": "verify", "K2": "verify", "K3": "verify", "K4": "tally"}
     for r in rows:
         r["launches"] = sl["launches"][by_name[r["name"][:2]]]
@@ -2174,13 +2455,21 @@ def main() -> int:
     # the mesh-sharded serving step: 4 shards over the visible cards in turn
     mcorpus = _mesh_corpus()
     mesh = round_robin_mesh(MESH_SHARDS)
-    mp, fb = mesh_phase(mcorpus, mesh, engine_builds_mesh=False)
+    mp, fb, one_res = mesh_phase(mcorpus, mesh, engine_builds_mesh=False)
     rows += mesh_rows(card, mcorpus, mesh, fb, mp["launches"], mp["mesh"]["steps"])
+    thm = threaded_phase(mcorpus, mesh.devices[0], one_res, mp["mesh"], "threaded mesh",
+                         mesh=mesh, max_batch=MESH_BATCH, max_slots=MESH_SLOTS)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "ptxas": ptx, "kernels": rows, "txf_verify_quarters": qc, "slice": sl,
-                   "radix13_slice": s13, "int64_slice": wide, "ab_k3_verify13": ab, "committee": cm,
-                   "mesh": mp}, f, indent=1)
+                   "threaded_slice": ths, "threaded_slice_commits_inline": ths_inline,
+                   "serial_slice_again": sl_again,
+                   "radix13_slice": s13, "int64_slice": wide,
+                   "ab_k3_verify13": ab, "committee": cm, "mesh": mp, "threaded_mesh": thm},
+                  f, indent=1)
+    for name, run in (("threaded_slice", ths), ("threaded_slice_commits_inline", ths_inline),
+                      ("threaded_mesh", thm)):
+        log(json.dumps({name: _threaded_json(run)}))
     for name, run in (("radix13_slice", s13), ("int64_slice", wide)):
         log(json.dumps({name: {k: v for k, v in run.items() if k != "step_s"}}))
     log(json.dumps({"ab_k3_verify13": ab}))

@@ -18,6 +18,11 @@ on bit-exact sign bytes, so this module reproduces the relevant wire rules:
   treat arrays as default — hence CanonicalTxVote.TxKey serializes as 32 zero
   bytes); struct fields are skipped only when their encoded body is empty
   (the vectors show an empty CanonicalBlockID elided but a zero time written).
+
+``canonical_sign_bytes`` (CanonicalTxVote) lives here rather than in
+``types.tx_vote`` so that the host-prep worker processes (``prep.py``)
+encode sign bytes with this module alone, never importing the crypto
+package that ``types`` pulls in.
 """
 
 from __future__ import annotations
@@ -108,3 +113,41 @@ def read_uvarint(data: bytes, pos: int = 0) -> tuple[int, int]:
         shift += 7
         if shift > 63:
             raise ValueError("uvarint overflows 64 bits")
+
+
+_ZERO_TXKEY = bytes(32)
+
+
+def canonical_sign_bytes(
+    chain_id: str, height: int, tx_hash: str, timestamp_ns: int
+) -> bytes:
+    """Length-prefixed amino encoding of CanonicalTxVote.
+
+    Hand-tightened: this runs once per vote on the verify path. Field-key
+    bytes are the precomputed amino constants -- (fnum << 3) | typ3, all
+    < 0x80 -- and the bytes equal the JAX package's (the port's engine
+    tests compare certificates byte for byte).
+    """
+    body = bytearray()
+    if height != 0:
+        body += b"\x09"  # field 1, TYP3_8BYTE
+        body += (height & 0xFFFFFFFFFFFFFFFF).to_bytes(8, "little")
+    if tx_hash:
+        hb = tx_hash.encode()
+        body += b"\x12"  # field 2, TYP3_BYTELEN
+        body += uvarint(len(hb))
+        body += hb
+    # TxKey: fixed-size array, never elided; canonicalization leaves it zero.
+    body += b"\x1a\x20"  # field 3, TYP3_BYTELEN, len 32
+    body += _ZERO_TXKEY
+    ts_body = encode_time_body(timestamp_ns)
+    if ts_body:
+        body += b"\x22"  # field 4, TYP3_BYTELEN
+        body += uvarint(len(ts_body))
+        body += ts_body
+    if chain_id:
+        cb = chain_id.encode()
+        body += b"\x2a"  # field 5, TYP3_BYTELEN
+        body += uvarint(len(cb))
+        body += cb
+    return length_prefixed(bytes(body))

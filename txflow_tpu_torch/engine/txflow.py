@@ -18,6 +18,22 @@ a time, verifying each ed25519 signature on the host under a mutex
    from the pool -> push the tx into the commitpool (the sequence of
    txflow/service.go:216-232).
 
+``step()`` runs one round serially. ``start()`` / ``stop()`` serve the
+pool from threads instead (``txflow_tpu/engine/txflow.py:465-664``, the
+branch with no coalescer and no priority lane): ``_run_pipelined`` keeps
+up to ``pipeline_depth`` verify calls in flight -- batch N+1's drain and
+host prep overlap batch N on the card -- and collects and routes them in
+submission order, so certificates are byte-identical to the serial loop;
+a committer thread takes the store, ABCI and pool-purge effects of each
+decided commit (``pipeline_commits``); a host-prep pool
+(``engine/hostprep.py``, ``host_prep_workers``) encodes sign bytes and the
+verifier's compact prep in worker processes; the device verifier reads
+each step back through its ring (``parallel/staging.py``). ``start()``
+first builds the kernels and runs one all-padding step at the drain
+bucket (``DeviceVoteVerifier.warm``), so the first served step pays no
+build or first launch. A failure in a thread is kept and raised by
+``stop()``; nothing falls back.
+
 At a block boundary ``update_state`` moves the engine to a new height and,
 on a rotated set (a new epoch's committee), restages the verifier's tables
 and re-evaluates every in-flight vote set; ``apply_synced_commit`` is the
@@ -34,7 +50,10 @@ pool instead of lingering.
 from __future__ import annotations
 
 import hashlib
+import queue as _queue
 import threading
+import time
+from collections import deque
 
 import numpy as np
 
@@ -46,21 +65,31 @@ from ..types.tx_vote import sign_bytes_many
 from ..types.validator import ValidatorSet
 from ..utils.cache import LRUCache
 from ..utils.config import EngineConfig
+from ..ops import _lib
 from ..parallel.mesh import make_mesh
 from ..verifier import DeviceVoteVerifier, ScalarVoteVerifier
 from .execution import TxExecutor
+from .hostprep import make_host_pool
+
+# below this many drained votes the pool's shard bookkeeping costs more
+# than the parallel encode saves
+_POOL_MIN_VOTES = 256
 
 
 class _StepPrep:
     """Host-side product of one pool drain: everything the verify call and
-    the routing pass need."""
+    the routing pass need. In the pipelined loop it is built while the
+    previous batch is still in flight, so its dedup and prior stake may be
+    one batch stale: routing re-validates every vote against
+    vote_sets/_committed, and the host TxVoteSet, never the device's
+    maj23, decides each quorum."""
 
     __slots__ = (
         "keys", "votes", "slots", "n_slots", "prior", "msgs", "sigs",
-        "val_idx", "dropped", "verifier",
+        "val_idx", "dropped", "verifier", "drain_seq", "t0", "submit_t",
     )
 
-    def __init__(self):
+    def __init__(self, drain_seq: int = 0, t0: float = 0.0):
         self.keys: list[bytes] = []
         self.votes: list[TxVote] = []
         self.slots: list[int] = []
@@ -72,6 +101,9 @@ class _StepPrep:
         self.dropped = 0
         # the verifier of the set whose address->index map built val_idx
         self.verifier = None
+        self.drain_seq = drain_seq  # pool seq before the drain
+        self.t0 = t0
+        self.submit_t = t0
 
 
 class TxFlow:
@@ -106,12 +138,14 @@ class TxFlow:
             # tallied in int64 on the device (the JAX engine takes its
             # host verifier there)
             fe_radix = self.config.fe_radix
+            ring = int(self.config.staging_ring)
             if int(self.config.mesh_devices or 0) > 1:
                 mesh = make_mesh(int(self.config.mesh_devices), device=self.config.device)
-                self.verifier = DeviceVoteVerifier(val_set, mesh=mesh, fe_radix=fe_radix)
+                self.verifier = DeviceVoteVerifier(val_set, mesh=mesh, fe_radix=fe_radix,
+                                                   staging_ring=ring)
             else:
                 self.verifier = DeviceVoteVerifier(
-                    val_set, device=self.config.device, fe_radix=fe_radix
+                    val_set, device=self.config.device, fe_radix=fe_radix, staging_ring=ring
                 )
         else:
             self.verifier = ScalarVoteVerifier(val_set)
@@ -137,41 +171,308 @@ class TxFlow:
         self._unapplied: dict[str, bytes] = {}
         self.app_hash = b""
         self.last_rotation: dict | None = None
+        # threaded engine (start/stop): the loop and committer threads, the
+        # commit queue, and the first error a thread met (stop() raises it)
+        self._running = False
+        self._thread: threading.Thread | None = None
+        self._committer: threading.Thread | None = None
+        self._commit_q: _queue.SimpleQueue = _queue.SimpleQueue()
+        self._error: BaseException | None = None
+        # decided against applied commits: commits_drained() compares them
+        self._decided_count = 0
+        self._applied_count = 0
+        # the host-prep pool the drain encodes sign bytes on: the device
+        # verifier's (ensure_host_pool), or the engine's own beside a host
+        # verifier
+        self._host_pool = None
+        self._own_host_pool = False
+        self.warm_s: float | None = None  # start()'s build + warm step
+        # pipeline accounting (loop thread; pipeline_stats reads it):
+        # busy is the union of the [submit, collect] windows, active the
+        # loop's own prep, wait and route seconds
+        self._pipe_steps = 0
+        self._pipe_prep_s = 0.0
+        self._pipe_wait_s = 0.0
+        self._pipe_route_s = 0.0
+        self._pipe_busy_s = 0.0
+        self._pipe_active_s = 0.0
+        self._pipe_last_collect = 0.0
+        self._pipe_lock_wait_s = 0.0
+        self._pipe_prep_sign_s = 0.0
+        self._pipe_prep_pool_wait_s = 0.0
+        # batches drained and not yet routed (under _mtx): with the drain
+        # cursor, what a caller waiting for quiescence reads
+        self._pipe_in_flight = 0
+        # the last step's (decided, requeued, dropped, batch)
+        self.last_step_stats: dict | None = None
+
+    # ---- lifecycle: the threaded engine (reference OnStart :80-87) ----
+
+    def start(self) -> None:
+        """Build the kernels, run the warm step, attach the host-prep pool,
+        then start the committer (``pipeline_commits``) and the run loop
+        (``txflow_tpu/engine/txflow.py:465``). Raises if any of it fails."""
+        with self._mtx:
+            if self._running:
+                return
+            self._running = True
+            self._error = None
+            self._commit_q = _queue.SimpleQueue()
+        try:
+            self._warm()
+            workers = int(self.config.host_prep_workers or 0)
+            if workers > 1 and self._host_pool is None:
+                backend = str(self.config.host_prep_backend)
+                if isinstance(self.verifier, DeviceVoteVerifier):
+                    self._host_pool = self.verifier.ensure_host_pool(workers, backend)
+                else:
+                    self._host_pool = make_host_pool(workers, backend, name="hostprep-engine")
+                    self._own_host_pool = True
+        except BaseException:
+            with self._mtx:
+                self._running = False
+            raise
+        self.tx_vote_pool.enable_txs_available()
+        if self.config.pipeline_commits:
+            self._committer = threading.Thread(
+                target=self._guard, args=(self._committer_run,), name="txflow-commit",
+                daemon=True,
+            )
+            self._committer.start()
+        self._thread = threading.Thread(
+            target=self._guard, args=(self._run,), name="txflow", daemon=True
+        )
+        self._thread.start()
+
+    def _warm(self) -> None:
+        """The warm step (it replaces the JAX package's shape prewarm,
+        ``engine/shapes.py``: nvcc kernels compile once, not per shape):
+        build the kernels when the verifier is on CUDA cards, then submit
+        and collect one all-padding batch at the drain bucket over
+        ``max_slots`` slots on every card of its mesh."""
+        v = self.verifier
+        if not isinstance(v, DeviceVoteVerifier):
+            return
+        t0 = time.perf_counter()
+        if v.device.type == "cuda":
+            _lib.build_all()
+        v.warm(self._drain_cap, self.config.max_slots)
+        self.warm_s = time.perf_counter() - t0
+
+    def _guard(self, fn) -> None:
+        """Run a thread's body; keep its error for stop() and stop the
+        engine (no thread dies quietly)."""
+        try:
+            fn()
+        except BaseException as exc:
+            with self._mtx:
+                if self._error is None:
+                    self._error = exc
+                self._running = False
+            if self._committer is not None and threading.current_thread() is not self._committer:
+                self._commit_q.put(None)  # the committer drains and exits too
+
+    @property
+    def error(self) -> BaseException | None:
+        """The first error a thread of the engine met (None while sound)."""
+        return self._error
+
+    def stop(self) -> None:
+        """Stop the loop (it collects and routes every ticket in flight),
+        drain the commit queue, close the host-prep pool and the readback
+        ring, and raise the first error a thread met."""
+        with self._mtx:
+            self._running = False
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._committer is not None:
+            self._commit_q.put(None)  # after the last decided commit
+            self._committer.join()
+            self._committer = None
+        if self._own_host_pool and self._host_pool is not None:
+            self._host_pool.close()
+        self._host_pool = None
+        self._own_host_pool = False
+        if isinstance(self.verifier, DeviceVoteVerifier):
+            self.verifier.close()
+        if self._error is not None:
+            raise self._error
+
+    def _run(self) -> None:
+        if self.config.pipeline_depth >= 2:
+            self._run_pipelined()
+        else:
+            self._run_serial()
+
+    def _pending(self) -> int:
+        """Unvisited ingest (pool seq minus the drain cursor, which over-
+        counts only removed-not-yet-visited entries) plus the retries."""
+        return self.tx_vote_pool.seq() - self._drain_cursor + len(self._retry)
+
+    def _run_serial(self) -> None:
+        """``txflow_tpu/engine/txflow.py:730``: form a batch, step, and on
+        an empty round wait on the pool's ingest counter (sampled before
+        the step, so a vote that lands mid-step wakes the loop at once)."""
+        while True:
+            with self._mtx:
+                if not self._running:
+                    return
+            seq_before = self.tx_vote_pool.seq()
+            self._form_batch()
+            processed = self.step()
+            if self._committer is None and self._unapplied:
+                self._apply_unapplied()
+            if processed == 0 and not self._retry:
+                self.tx_vote_pool.wait_for_new(seq_before, timeout=self.config.poll_interval)
+
+    def _run_pipelined(self) -> None:
+        """``txflow_tpu/engine/txflow.py:794``: prep and submit until
+        ``pipeline_depth`` tickets are in flight (with a ticket pending, a
+        follow-up batch goes only once ``min_batch`` votes wait), then
+        collect the oldest and route it, in submission order. On stop, or
+        an error, every ticket in flight is still collected and routed."""
+        inflight: deque = deque()
+        try:
+            while True:
+                with self._mtx:
+                    if not self._running:
+                        return
+                depth = max(2, int(self.config.pipeline_depth))
+                seq_before = self.tx_vote_pool.seq()
+                while len(inflight) < depth:
+                    if not inflight:
+                        self._form_batch()
+                    elif self._pending() < max(1, self.config.min_batch):
+                        break
+                    prep = self._prep_batch()
+                    if prep is None:
+                        break
+                    if not prep.votes:
+                        continue  # a drop-only drain: the cursor moved on
+                    inflight.append((prep, self._submit_prep(prep)))
+                if not inflight:
+                    if self._committer is None and self._unapplied:
+                        self._apply_unapplied()
+                    if not self._retry:
+                        self.tx_vote_pool.wait_for_new(
+                            seq_before, timeout=self.config.poll_interval
+                        )
+                    continue
+                prep, ticket = inflight.popleft()
+                _decided, _requeued, all_deferred = self._route_result(
+                    prep, self._collect(prep, ticket)
+                )
+                if self._committer is None and self._unapplied:
+                    self._apply_unapplied()
+                if all_deferred:
+                    self.tx_vote_pool.wait_for_new(
+                        prep.drain_seq, timeout=self.config.defer_backoff
+                    )
+        finally:
+            err = None
+            while inflight:
+                prep, ticket = inflight.popleft()
+                try:
+                    self._route_result(prep, self._collect(prep, ticket))
+                except Exception as exc:  # raised below, after the rest settle
+                    err = err or exc
+            if err is not None:
+                raise err
+
+    def _form_batch(self) -> None:
+        """Hold up to batch_wait for min_batch pending votes; with votes
+        pending and none arriving for idle_flush, go at once
+        (``txflow_tpu/engine/txflow.py:954``)."""
+        min_batch = self.config.min_batch
+        if min_batch <= 1:
+            return
+        deadline = time.monotonic() + self.config.batch_wait
+        idle_flush = self.config.idle_flush
+        while True:
+            seq_now = self.tx_vote_pool.seq()
+            pending = self._pending()
+            remaining = deadline - time.monotonic()
+            if pending >= min_batch or remaining <= 0:
+                return
+            timeout = remaining
+            if idle_flush > 0 and pending > 0:
+                timeout = min(remaining, idle_flush)
+            got = self.tx_vote_pool.wait_for_new(seq_now, timeout=timeout)
+            if got == seq_now and pending > 0:
+                return
 
     # ---- batched aggregation step ----
 
-    def step(self) -> int:
+    def step(self, limit: int | None = None) -> int:
         """One serial verify+tally+commit round (prep -> submit -> collect
         -> route); returns votes processed this step: votes routed to a
         decision plus votes dropped at drain time. Votes the verifier
         deferred (in-batch repeats) re-enter via _retry and are counted by
-        the step that decides them."""
-        prep = self._prep_batch()
+        the step that decides them; ``last_step_stats`` reconciles
+        decided + requeued with the verified batch. ``limit`` caps the
+        batch (retries included) below the drain cap."""
+        prep = self._prep_batch(limit)
         if prep is None:
             return 0
         if not prep.votes:
+            self.last_step_stats = {"decided": 0, "requeued": 0, "dropped": prep.dropped,
+                                    "batch": 0}
             return prep.dropped
         # device verify outside the engine lock: routing re-validates
         # against vote_sets/_committed
         ticket = self._submit_prep(prep)
         result = self._collect(prep, ticket)
-        decided, _requeued = self._route_result(prep, result)
+        decided, _requeued, all_deferred = self._route_result(prep, result)
+        if all_deferred:
+            self.tx_vote_pool.wait_for_new(prep.drain_seq, timeout=self.config.defer_backoff)
         return decided + prep.dropped
 
-    def _prep_batch(self) -> "_StepPrep | None":
+    def _sign_bytes_proc(self, votes, pool) -> list[bytes]:
+        """Sign bytes of a drain batch over the process pool
+        (``txflow_tpu/engine/txflow.py:1042``): the cache scan inline, the
+        misses encoded by the workers, each vote's cache primed with its
+        bytes -- the bytes of ``sign_bytes_many``."""
+        out: list = [None] * len(votes)
+        miss: list[int] = []
+        for i, v in enumerate(votes):
+            c = v._sb_cache
+            if c is not None and c[0] == self.chain_id:
+                out[i] = c[1]
+            else:
+                miss.append(i)
+        if miss:
+            rows, wait_s = pool.sign_bytes_shm(
+                [votes[i].height for i in miss], [votes[i].tx_hash for i in miss],
+                [votes[i].timestamp_ns for i in miss], self.chain_id,
+            )
+            self._pipe_prep_pool_wait_s += wait_s
+            for j, i in enumerate(miss):
+                out[i] = rows[j]
+                if votes[i].signature is not None:  # immutable once signed
+                    object.__setattr__(votes[i], "_sb_cache", (self.chain_id, rows[j]))
+        return out
+
+    def _prep_batch(self, limit: int | None = None) -> "_StepPrep | None":
         """Drain the pool, dedup against committed/held votes, assign tx
-        slots, gather prior stake, and build sign bytes. Returns None when
-        nothing was drained; a prep with empty ``votes`` when everything
-        drained was dropped."""
+        slots, gather prior stake, and build sign bytes (on the host-prep
+        pool from ``_POOL_MIN_VOTES`` votes). Returns None when nothing was
+        drained; a prep with empty ``votes`` when everything drained was
+        dropped."""
+        t0 = time.perf_counter()
+        target = self._drain_cap if limit is None else min(limit, self._drain_cap)
+        drain_seq = self.tx_vote_pool.seq()
         with self._mtx:
+            lk = time.perf_counter()
+            self._pipe_lock_wait_s += lk - t0
             raw, self._drain_cursor = self.tx_vote_pool.entries_from(
-                self._drain_cursor, limit=max(self._drain_cap - len(self._retry), 0)
+                self._drain_cursor, limit=max(target - len(self._retry), 0)
             )
             batch = self._retry + [(k, v) for k, v, _h in raw]
             self._retry = []
             if not batch:
                 return None
-            prep = _StepPrep()
+            prep = _StepPrep(drain_seq, t0)
             keys, votes, slots = prep.keys, prep.votes, prep.slots
             slot_of: dict[str, int] = {}
             drop_now: list[bytes] = []
@@ -206,6 +507,7 @@ class TxFlow:
             prep.dropped = len(drop_now)
             if not votes:
                 return prep
+            self._pipe_in_flight += 1
             prep.n_slots = len(slot_of)
             prior = np.zeros(prep.n_slots, np.int64)
             for tx_hash, s in slot_of.items():
@@ -218,32 +520,77 @@ class TxFlow:
             # verifier that matches the indices it was built with
             addr_to_idx = self._addr_to_idx
             prep.verifier = self.verifier
-        prep.msgs = sign_bytes_many(votes, self.chain_id)
-        prep.sigs = [v.signature or b"" for v in votes]
-        prep.val_idx = np.array(
-            [addr_to_idx.get(v.validator_address, -1) for v in votes], dtype=np.int64
-        )
+        pool = self._host_pool
+        t_sign = time.perf_counter()
+        if pool is not None and len(votes) >= _POOL_MIN_VOTES and pool.backend == "process":
+            # worker processes over shared memory; a broken pool raises
+            prep.msgs = self._sign_bytes_proc(votes, pool)
+            prep.sigs = [v.signature or b"" for v in votes]
+            prep.val_idx = np.array(
+                [addr_to_idx.get(v.validator_address, -1) for v in votes], dtype=np.int64
+            )
+        elif pool is not None and len(votes) >= _POOL_MIN_VOTES:
+            def assemble(lo: int, hi: int):
+                part = votes[lo:hi]
+                return (sign_bytes_many(part, self.chain_id), [v.signature or b"" for v in part],
+                        [addr_to_idx.get(v.validator_address, -1) for v in part])
+
+            parts, wait_s = pool.map_shards(len(votes), assemble)
+            prep.msgs = [m for p in parts for m in p[0]]
+            prep.sigs = [s for p in parts for s in p[1]]
+            prep.val_idx = np.array([i for p in parts for i in p[2]], dtype=np.int64)
+            self._pipe_prep_pool_wait_s += wait_s
+        else:
+            prep.msgs = sign_bytes_many(votes, self.chain_id)
+            prep.sigs = [v.signature or b"" for v in votes]
+            prep.val_idx = np.array(
+                [addr_to_idx.get(v.validator_address, -1) for v in votes], dtype=np.int64
+            )
+        end = time.perf_counter()
+        self._pipe_prep_sign_s += end - t_sign
+        self._pipe_prep_s += end - t0
+        self._pipe_active_s += end - t0
         return prep
 
     def _submit_prep(self, prep: "_StepPrep"):
         """Hand the prepped batch to the verifier captured at drain
-        (launch; no readback)."""
-        return prep.verifier.submit(
+        (host prep, H2D, launch; no readback)."""
+        t0 = time.perf_counter()
+        prep.submit_t = t0
+        ticket = prep.verifier.submit(
             prep.msgs, prep.sigs, prep.val_idx,
             np.array(prep.slots, np.int32), prep.n_slots,
             prior_stake=prep.prior,
         )
+        dur = time.perf_counter() - t0
+        self._pipe_prep_s += dur
+        self._pipe_active_s += dur
+        return ticket
 
     def _collect(self, prep: "_StepPrep", ticket):
-        """Block for the ticket's readback."""
-        return ticket.result()
+        """Block for the ticket's readback, and account the device-busy
+        window [submit, collect], unioned over overlapping tickets (they
+        are collected in order, so the last collect is the watermark)."""
+        t0 = time.perf_counter()
+        result = ticket.result()
+        t1 = time.perf_counter()
+        self._pipe_wait_s += t1 - t0
+        self._pipe_active_s += t1 - t0
+        start = max(prep.submit_t, self._pipe_last_collect)
+        if t1 > start:
+            self._pipe_busy_s += t1 - start
+        self._pipe_last_collect = t1
+        return result
 
-    def _route_result(self, prep: "_StepPrep", result) -> tuple[int, int]:
+    def _route_result(self, prep: "_StepPrep", result) -> tuple[int, int, bool]:
         """Route the verified batch in submission (= pool ingest) order into
         the authoritative vote sets, committing the moment a set crosses
         2/3 -- the reference's per-vote order (service.go:192-234), so
-        certificates equal the scalar path's. Returns (decided, requeued);
+        certificates equal the scalar path's. A decided commit goes to the
+        committer thread when there is one, else its effects run here
+        after the lock. Returns (decided, requeued, all_deferred);
         decided + requeued == len(prep.votes)."""
+        t0 = time.perf_counter()
         keys, votes = prep.keys, prep.votes
         requeued = 0
         inline_commits: list[tuple[TxVoteSet, list[TxVote], bytes | None]] = []
@@ -274,8 +621,11 @@ class TxFlow:
                 added, _err = vs.add_verified_vote(vote)
                 if added:
                     if vs.has_two_thirds_majority():
-                        # decision under _mtx; store/ABCI effects below
-                        inline_commits.append(self._decide_commit(vs))
+                        # decision under _mtx; store/ABCI effects after it
+                        if self._committer is not None:
+                            self._enqueue_commit(vs)
+                        else:
+                            inline_commits.append(self._decide_commit(vs))
                 else:
                     bad_keys.append(keys[i])  # dup/conflict: can never add
             if bad_keys:
@@ -286,7 +636,51 @@ class TxFlow:
             )
         if purge_votes:
             self.tx_vote_pool.update(self.height, purge_votes)
-        return len(votes) - requeued, requeued
+        with self._mtx:  # the batch is routed, its effects done
+            self._pipe_in_flight -= 1
+            self._pipe_steps += 1
+        dur = time.perf_counter() - t0
+        self._pipe_route_s += dur
+        self._pipe_active_s += dur
+        decided = len(votes) - requeued
+        self.last_step_stats = {"decided": decided, "requeued": requeued,
+                                "dropped": prep.dropped, "batch": len(votes)}
+        return decided, requeued, requeued == len(votes)
+
+    def pipeline_stats(self) -> dict:
+        """The pipeline's accounting (``txflow_tpu/engine/txflow.py:1565``,
+        the fields this engine fills): steps; device-busy seconds (the
+        union of [submit, collect] windows) over the loop's active seconds
+        (prep, readback wait, route); the host-prep split (sign-bytes
+        stage, and the part of it spent waiting on pool shards); the
+        pool's and the readback ring's counters."""
+        active = self._pipe_active_s
+        busy = min(self._pipe_busy_s, active)
+        pool = self._host_pool
+        stats = {
+            "depth": int(self.config.pipeline_depth),
+            "steps": self._pipe_steps,
+            "in_flight": self._pipe_in_flight,
+            "overlap_ratio": busy / active if active > 0 else None,
+            "device_busy_s": self._pipe_busy_s,
+            "active_s": active,
+            "idle_gap_s": max(active - busy, 0.0),
+            "prep_s": self._pipe_prep_s,
+            "dispatch_wait_s": self._pipe_wait_s,
+            "route_s": self._pipe_route_s,
+            "lock_wait_s": self._pipe_lock_wait_s,
+            "prep_sign_s": self._pipe_prep_sign_s,
+            "prep_pool_wait_s": self._pipe_prep_pool_wait_s,
+            "host_prep_workers": pool.workers if pool is not None else 0,
+            "host_prep_backend": pool.backend if pool is not None else None,
+            "host_prep": pool.stats() if pool is not None else None,
+            "mesh_devices": self._verifier_shards(),
+            "warm_s": self.warm_s,
+        }
+        ring = getattr(self.verifier, "staging_stats", None)
+        if ring is not None and ring() is not None:
+            stats["staging"] = ring()
+        return stats
 
     # ---- scalar parity API (reference TryAddVote :169-188) ----
 
@@ -333,6 +727,104 @@ class TxFlow:
         self._commit_effects(vs, quorum_votes, purge_batch)
         if purge_batch is None:
             self.tx_vote_pool.update(self.height, quorum_votes)
+
+    def _enqueue_commit(self, vs: TxVoteSet) -> None:
+        """Route-side half of a committer commit
+        (``txflow_tpu/engine/txflow.py:1736``): the bookkeeping now, under
+        _mtx, the effects on the committer thread in decision order. The tx
+        bytes are captured here, and a missing tx is registered unapplied
+        the same instant the hash is marked committed."""
+        self.vote_sets.pop(vs.tx_hash, None)
+        self._committed.push(_hash_key(vs.tx_hash))
+        self._decided_count += 1
+        tx = self.mempool.get_tx(vs.tx_key)
+        if tx is None:
+            self._unapplied[vs.tx_hash] = vs.tx_key
+        self._commit_q.put((vs, vs.votes_snapshot(), tx))
+
+    def _committer_run(self) -> None:
+        """The committer thread (``txflow_tpu/engine/txflow.py:1815``):
+        each wake drains the queue's backlog (up to 1024 commits) into one
+        ``_commit_batch``; pool purges gather until the queue runs dry.
+        ``None`` (queued by stop() after the last decided commit) ends it
+        once what came before is committed."""
+        purge: list[TxVote] = []
+        interval = max(1, int(self.config.commit_interval))
+
+        def flush() -> None:
+            if purge:
+                self.tx_vote_pool.update(self.height, purge)
+                purge.clear()
+
+        stop = False
+        while not stop:
+            try:
+                item = self._commit_q.get(timeout=0.05)
+            except _queue.Empty:
+                flush()
+                self._apply_unapplied()
+                continue
+            if item is None:
+                break
+            batch = [item]
+            while len(batch) < 1024:
+                try:
+                    nxt = self._commit_q.get_nowait()
+                except _queue.Empty:
+                    break
+                if nxt is None:
+                    stop = True
+                    break
+                batch.append(nxt)
+            self._commit_batch(batch, purge, interval)
+            if stop or len(purge) >= 8192 or self._commit_q.empty():
+                flush()
+                self._apply_unapplied()
+        flush()
+
+    def _commit_batch(self, items: list, purge: list[TxVote], interval: int = 1) -> None:
+        """Effects of one wake's decided commits
+        (``txflow_tpu/engine/txflow.py:1861``): the certificate rows in one
+        store write, then each tx's apply in decision order, the app Commit
+        fenced after every ``interval`` txs (1: ``apply_tx`` per tx, the
+        reference's path; more: ``apply_tx_batch``), then the commitpool.
+        A tx whose bytes had not arrived stays unapplied until they do."""
+        self.tx_store.save_txs_batch(items)
+        apply_items: list[tuple] = []
+        deferred = retired = 0
+        for vs, votes, tx in items:
+            purge.extend(votes)
+            if tx is None:
+                with self._mtx:
+                    if vs.tx_hash not in self._unapplied:
+                        retired += 1  # another path applied it, and counted it
+                        continue
+                    tx = self.mempool.get_tx(vs.tx_key)
+                    if tx is None:
+                        deferred += 1  # still waiting for the bytes
+                        continue
+                    del self._unapplied[vs.tx_hash]
+                self.tx_store.save_tx_bytes(vs.tx_hash, tx)
+            apply_items.append((vs, tx))
+        for base in range(0, len(apply_items), interval):
+            group = apply_items[base : base + interval]
+            if len(group) == 1:
+                vs, tx = group[0]
+                app_hash, _ = self.tx_executor.apply_tx(
+                    self.height, tx, vs.tx_key.hex().upper(), tx_key=vs.tx_key
+                )
+            else:
+                app_hash, _ = self.tx_executor.apply_tx_batch(
+                    self.height, [(tx, vs.tx_key.hex().upper()) for vs, tx in group],
+                    keys=[vs.tx_key for vs, _ in group],
+                )
+            self.app_hash = app_hash
+        if apply_items:
+            self.commitpool.push_committed_many(
+                [tx for _, tx in apply_items], [vs.tx_key for vs, _ in apply_items]
+            )
+        with self._mtx:
+            self._applied_count += len(items) - deferred - retired
 
     def _commit_effects(
         self,
@@ -395,6 +887,7 @@ class TxFlow:
                 return False
             live = self.vote_sets.pop(tx_hash, None)
             self._committed.push(_hash_key(tx_hash))
+            self._decided_count += 1
         if live is not None:
             # a below-quorum local aggregation was racing the sync apply:
             # release its pool votes
@@ -406,7 +899,51 @@ class TxFlow:
             self.commitpool.check_tx(tx, key=tx_key)
         except Exception:
             pass  # commitpool dup (e.g. replays) is harmless
+        with self._mtx:
+            self._applied_count += 1
         return True
+
+    def commits_drained(self) -> bool:
+        """True when every decided commit has been applied: the committer's
+        queue is empty, its wake finished, and no tx waits for its bytes
+        (``txflow_tpu/engine/txflow.py:2007``; the port's executor publishes
+        its events inline, so none are queued)."""
+        with self._mtx:
+            return self._applied_count >= self._decided_count and not self._unapplied
+
+    def register_unapplied(self, pairs: list[tuple[str, bytes]]) -> None:
+        """Adopt decided-but-unapplied txs (tx_hash, tx_key), as after a
+        restart: each owes its apply, delivered by the same rules as a
+        quorum that beat its tx bytes (``txflow_tpu/engine/txflow.py:2021``)."""
+        with self._mtx:
+            for tx_hash, tx_key in pairs:
+                if tx_hash not in self._unapplied:
+                    self._decided_count += 1  # balanced by its eventual apply
+                self._unapplied[tx_hash] = tx_key
+
+    def _apply_unapplied(self) -> None:
+        """Late delivery: apply decided txs whose bytes have since reached
+        the mempool (``txflow_tpu/engine/txflow.py:2038``)."""
+        with self._mtx:
+            if not self._unapplied:
+                return
+            pending = list(self._unapplied.items())
+        for tx_hash, tx_key in pending:
+            tx = self.mempool.get_tx(tx_key)
+            if tx is None:
+                continue
+            with self._mtx:
+                if tx_hash not in self._unapplied:
+                    continue  # applied by another path meanwhile
+                del self._unapplied[tx_hash]
+            self.tx_store.save_tx_bytes(tx_hash, tx)
+            app_hash, _ = self.tx_executor.apply_tx(
+                self.height, tx, tx_key.hex().upper(), tx_key=tx_key
+            )
+            self.app_hash = app_hash
+            self.commitpool.push_committed_many([tx], [tx_key])
+            with self._mtx:
+                self._applied_count += 1
 
     # ---- block boundary: epoch rotation ----
 
@@ -439,12 +976,16 @@ class TxFlow:
             # leaves the old epoch's height, map, set and verifier together
             if restaged:
                 verifier = base
-            elif base.mesh is not None:
-                verifier = DeviceVoteVerifier(val_set, mesh=base.mesh, fe_radix=base.fe_radix)
             else:
-                verifier = DeviceVoteVerifier(
-                    val_set, device=base.device, fe_radix=base.fe_radix
-                )
+                if base.mesh is not None:
+                    verifier = DeviceVoteVerifier(val_set, mesh=base.mesh, fe_radix=base.fe_radix,
+                                                  staging_ring=base.staging_depth)
+                else:
+                    verifier = DeviceVoteVerifier(val_set, device=base.device,
+                                                  fe_radix=base.fe_radix,
+                                                  staging_ring=base.staging_depth)
+                # the host-prep pool serves the successor
+                verifier._host_pool, base._host_pool = base._host_pool, None
             self.height = height
             self.val_set = val_set
             self._addr_to_idx = {v.address: i for i, v in enumerate(val_set)}

@@ -113,23 +113,50 @@ class CompactBatch:
     r_y: np.ndarray  # [B, 32] uint8 low 255 bits of sig[:32]
     r_sign: np.ndarray  # [B] uint8 bit 255 of sig[:32]
     pre_ok: np.ndarray  # [B] bool host pre-checks passed
+    # seconds the preparing thread waited on host-pool shards it did not
+    # run (0.0 on the serial path): accounting, not part of the batch
+    pool_wait_s: float = 0.0
 
     @property
     def size(self) -> int:
         return self.s_nibbles.shape[0]
 
 
+# below this many rows a pooled prep loses to its own shard bookkeeping
+POOL_MIN_ROWS = 256
+
+
 def prepare_compact(
-    msgs: list[bytes], sigs: list[bytes], val_idx: np.ndarray, epoch: EpochTables
+    msgs: list[bytes], sigs: list[bytes], val_idx: np.ndarray, epoch: EpochTables,
+    pool=None,
 ) -> CompactBatch:
-    """Host prep: msgs[i] signed by validator val_idx[i] with sigs[i]."""
+    """Host prep: msgs[i] signed by validator val_idx[i] with sigs[i].
+
+    ``pool`` (``engine/hostprep.py``) shards the rows contiguously over
+    its workers from ``POOL_MIN_ROWS`` rows: worker processes over shared
+    memory for the process backend, ``map_shards`` for the thread one.
+    Every row is prepared alone by the same row function, so the result
+    is byte-identical to the serial prep (as
+    ``txflow_tpu/ops/ed25519_batch.py:210``)."""
+    n = len(msgs)
+    vi = np.asarray(val_idx, dtype=np.int64)
+    if pool is not None and n >= POOL_MIN_ROWS:
+        if pool.backend == "process":
+            return CompactBatch(*pool.prepare_compact_shm(msgs, sigs, vi, epoch))
+
+        def shard(lo: int, hi: int) -> CompactBatch:
+            return prepare_compact(msgs[lo:hi], sigs[lo:hi], vi[lo:hi], epoch)
+
+        parts, wait_s = pool.map_shards(n, shard)
+        return CompactBatch(
+            *(np.concatenate([getattr(p, f) for p in parts]) for f in (
+                "s_nibbles", "h_nibbles", "val_idx", "r_y", "r_sign", "pre_ok")),
+            pool_wait_s=wait_s,
+        )
     msg_cat, offs = prep.cat_msgs(msgs)
     sig_arr, sig_ok = prep.cat_sigs(sigs)
     return CompactBatch(
-        *prep.prep_rows_cat(
-            msg_cat, offs, sig_arr, sig_ok,
-            np.asarray(val_idx, dtype=np.int64), epoch.pub_arr, epoch.key_ok,
-        )
+        *prep.prep_rows_cat(msg_cat, offs, sig_arr, sig_ok, vi, epoch.pub_arr, epoch.key_ok)
     )
 
 

@@ -8,7 +8,10 @@ Semantics kept from the reference:
 - a cache hit records the new sender for in-pool votes, then rejects
   (:213-228);
 - ``update(height, votes)`` pushes committed votes into the cache and
-  removes them from the pool (:329-359).
+  removes them from the pool (:329-359);
+- ``txs_available()``: an event set once per height when the pool holds
+  votes, after ``enable_txs_available()`` (:146-152, the JAX package's
+  ``txflow_tpu/pool/txvotepool.py:156-162,449-452``).
 
 The engine consumes through ``entries_from`` (a stable-cursor walk that
 does not remove: removal happens on commit/purge, like the reference's
@@ -17,6 +20,7 @@ checkMaj23Routine walking the CList without popping).
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field
 
 from ..types import TxVote, encode_tx_vote
@@ -53,10 +57,26 @@ class TxVotePool(IngestLogPool):
         self._votes: dict[bytes, _PoolVote] = self._items  # vote_key -> entry
         self._votes_bytes = 0
         self.cache = LRUCache(config.cache_size)
+        self._txs_available = threading.Event()
+        self._notified_txs_available = False
+        self._notify_available = False
 
     def size(self) -> int:
         with self._mtx:
             return len(self._votes)
+
+    def txs_available(self) -> threading.Event:
+        self._notify_available = True
+        return self._txs_available
+
+    def enable_txs_available(self) -> None:
+        self._notify_available = True
+
+    def _notify_txs_available(self) -> None:
+        """Set the event once per height (call under self._mtx)."""
+        if self._notify_available and not self._notified_txs_available:
+            self._notified_txs_available = True
+            self._txs_available.set()
 
     # -- ingest (reference CheckTx/CheckTxWithInfo :180-261) --
 
@@ -64,6 +84,7 @@ class TxVotePool(IngestLogPool):
         """Raises on rejection; returns None when the vote entered the pool."""
         with self._mtx:
             self._ingest_locked(vote, tx_info or TxInfo(UNKNOWN_PEER_ID))
+            self._notify_txs_available()
 
     def check_tx_many(
         self, votes: list[TxVote], tx_info: TxInfo | None = None
@@ -80,6 +101,8 @@ class TxVotePool(IngestLogPool):
                     except (ErrMempoolIsFull, ErrTxTooLarge, ErrTxInCache) as e:
                         out[i] = e
                 self._cond.notify_all()
+                if self._votes:
+                    self._notify_txs_available()
         return out
 
     def _ingest_locked(self, vote: TxVote, tx_info: TxInfo, notify: bool = True) -> None:
@@ -127,6 +150,8 @@ class TxVotePool(IngestLogPool):
     def update(self, height: int, votes: list[TxVote]) -> None:
         with self._mtx:
             self.height = height
+            self._notified_txs_available = False
+            self._txs_available.clear()
             for v in votes:
                 k = vote_key(v)
                 self.cache.push(k)  # committed votes stay cached
@@ -134,3 +159,5 @@ class TxVotePool(IngestLogPool):
                 if entry is not None:
                     self._votes_bytes -= entry.size
             self._log_compact()
+            if self._votes:
+                self._notify_txs_available()

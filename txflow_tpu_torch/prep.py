@@ -1,18 +1,32 @@
-"""Host prep of a compact verify batch (numpy; counterpart of
-``txflow_tpu/prep_proc.py``).
+"""Host prep of a compact verify batch, and the worker half of the process
+host-prep pool (numpy; counterpart of ``txflow_tpu/prep_proc.py``, the
+worker half its lines 233-380).
 
 Per vote: the S < L check ("ScMinimal"), SHA-512(R || A || msg) mod L,
 both scalars as MSB-first nibbles, the R bytes split into low 255 bits and
 sign bit, and the clipped validator index. Rows that fail a pre-check stay
 all-zero with ``pre_ok`` False, exactly as in the JAX package, so the two
 packages hand their kernels byte-identical inputs.
+
+Worker processes (``engine/hostprep.py:ProcHostPrepPool``) import this
+module alone: numpy, hashlib and the port's amino codec, never torch (a
+worker that imports torch pays seconds at spawn; one that touched CUDA
+would break). Per call the parent packs the inputs back to back into one
+shared-memory segment and allocates one output segment; each shard
+descriptor names both segments and an (offset, dtype, shape) table, and
+the worker writes rows ``[lo, hi)`` of the outputs in place with the same
+row function the parent uses, so shards assemble byte-identical to a
+serial prep.
 """
 
 from __future__ import annotations
 
 import hashlib
+import time
 
 import numpy as np
+
+from .codec.amino import canonical_sign_bytes
 
 # ed25519 group order (crypto.ed25519.L)
 L = 2**252 + 27742317777372353535851937790883648493
@@ -133,3 +147,100 @@ def prep_rows_cat(
         r_sign,
         ok,
     )
+
+
+def sign_rows(heights, ts_ns, hash_cat, hash_offs, chain_id: str, lo: int, hi: int,
+              out: np.ndarray, out_len: np.ndarray) -> None:
+    """Canonical sign bytes of rows ``[lo, hi)`` into fixed-stride rows of
+    ``out`` (lengths in ``out_len``): the worker's twin of
+    ``types.tx_vote.sign_bytes_many`` (one encoder, ``codec.amino``)."""
+    for i in range(lo, hi):
+        tx_hash = hash_cat[hash_offs[i] : hash_offs[i + 1]].tobytes().decode()
+        row = np.frombuffer(
+            canonical_sign_bytes(chain_id, int(heights[i]), tx_hash, int(ts_ns[i])), np.uint8
+        )
+        out[i, : len(row)] = row
+        out_len[i] = len(row)
+
+
+def sign_bytes_stride(max_hash_len: int, chain_id: str) -> int:
+    """Upper bound on one sign-bytes row: the fixed fields and varint
+    headroom over the hash and chain-id bytes."""
+    return 80 + int(max_hash_len) + len(chain_id.encode())
+
+
+def pack_layout(arrays: dict) -> tuple[list[tuple], int]:
+    """(name, dtype, shape, offset) table and total bytes of ``arrays``
+    packed back to back, 8-byte aligned, into one segment."""
+    layout = []
+    off = 0
+    for name, a in arrays.items():
+        a = np.ascontiguousarray(a)
+        layout.append((name, a.dtype.str, a.shape, off))
+        off += int(a.nbytes + 7) & ~7
+    return layout, max(off, 1)
+
+
+def write_arrays(buf, layout: list[tuple], arrays: dict) -> None:
+    for name, dt, shape, off in layout:
+        np.ndarray(shape, dtype=np.dtype(dt), buffer=buf, offset=off)[...] = arrays[name]
+
+
+def views(buf, layout: list[tuple]) -> dict:
+    return {name: np.ndarray(shape, dtype=np.dtype(dt), buffer=buf, offset=off)
+            for name, dt, shape, off in layout}
+
+
+def run_task(task: str, ins: dict, outs: dict, lo: int, hi: int) -> None:
+    """One typed shard: ``compact`` (the compact prep rows) or
+    ``signbytes`` (canonical sign-bytes rows), writing only rows
+    ``[lo, hi)`` of the outputs."""
+    if task == "compact":
+        rows = prep_rows_cat(ins["msg_cat"], ins["offs"], ins["sig_arr"], ins["sig_ok"],
+                             ins["vi"], ins["pub_arr"], ins["key_ok"], lo=lo, hi=hi)
+        for name, a in zip(("s_nib", "h_nib", "vidx", "r_y", "r_sign", "pre_ok"), rows):
+            outs[name][lo:hi] = a
+    elif task == "signbytes":
+        sign_rows(ins["heights"], ins["ts_ns"], ins["hash_cat"], ins["hash_offs"],
+                  ins["chain_id"], lo, hi, outs["rows"], outs["lens"])
+    else:
+        raise ValueError(f"unknown prep task {task!r}")
+
+
+def worker_main(task_q, done_q) -> None:
+    """Worker-process loop: ack ``("ready", pid)`` once, then for each
+    descriptor ``(task, shard_id, in_name, in_layout, out_name,
+    out_layout, lo, hi, extra)`` attach both segments by name, run the
+    shard and ack ``(shard_id, error or None, busy seconds)``; ``None``
+    stops the loop. ``extra`` carries small non-array inputs (the chain
+    id). Attachments are closed after each shard: no segment outlives
+    the call that made it."""
+    import os
+    from multiprocessing import shared_memory
+
+    done_q.put(("ready", os.getpid()))
+    while True:
+        item = task_q.get()
+        if item is None:
+            return
+        task, shard_id, in_name, in_layout, out_name, out_layout, lo, hi, extra = item
+        t0 = time.perf_counter()
+        err = None
+        segs = []
+        ins = outs = None
+        try:
+            segs = [shared_memory.SharedMemory(name=in_name),
+                    shared_memory.SharedMemory(name=out_name)]
+            ins = {**views(segs[0].buf, in_layout), **(extra or {})}
+            outs = views(segs[1].buf, out_layout)
+            run_task(task, ins, outs, lo, hi)
+        except Exception as exc:  # acked: the caller raises it
+            err = f"{type(exc).__name__}: {exc}"
+        finally:
+            ins = outs = None  # the views go before the segments close
+            for seg in segs:
+                try:
+                    seg.close()
+                except BufferError:
+                    pass  # a view survived; the caller's unlink reclaims it
+        done_q.put((shard_id, err, time.perf_counter() - t0))

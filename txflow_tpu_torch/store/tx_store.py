@@ -86,6 +86,26 @@ class TxStore:
             rows, sync = self._rows_for(vote_set, commit, votes, tx)
             self.db.set_many(rows, sync=sync)
 
+    def save_txs_batch(self, items: list[tuple]) -> None:
+        """Certificate rows for a whole committer wake in one db write
+        group (``txflow_tpu/store/tx_store.py:92``): one store lock, one
+        ``set_many``. Rows and their order equal per-item ``save_tx``
+        calls. Items are (vote_set, votes) or (vote_set, votes, tx)."""
+        if not items:
+            return
+        with self._mtx:
+            rows: list[tuple[bytes, bytes]] = []
+            sync = False
+            for item in items:
+                vote_set, votes = item[0], item[1]
+                tx = item[2] if len(item) > 2 else None
+                if vote_set is None:
+                    raise ValueError("TxStore can only save a non-nil TxVoteSet")
+                r, s = self._rows_for(vote_set, None, votes, tx)
+                rows.extend(r)
+                sync = sync or s
+            self.db.set_many(rows, sync=sync)
+
     def save_tx_bytes(self, tx_hash: str, tx: bytes) -> None:
         """Late tx-bytes row for a certificate saved before the bytes
         arrived (deferred-apply resolution)."""

@@ -13,6 +13,7 @@ import time as _time
 from dataclasses import dataclass, field
 
 from ..codec import amino
+from ..codec.amino import _ZERO_TXKEY, canonical_sign_bytes  # noqa: F401  (re-exported)
 from ..crypto import ed25519
 from ..crypto.hash import ADDRESS_SIZE, address_hash, sha256
 
@@ -21,46 +22,9 @@ MAX_VOTE_BYTES = 223
 # tendermint types.MaxSignatureSize (v0.31).
 MAX_SIGNATURE_SIZE = 64
 
-_ZERO_TXKEY = bytes(32)
-
 _SEMANTIC_FIELDS = frozenset(
     ("height", "tx_hash", "tx_key", "timestamp_ns", "validator_address", "signature")
 )
-
-
-def canonical_sign_bytes(
-    chain_id: str, height: int, tx_hash: str, timestamp_ns: int
-) -> bytes:
-    """Length-prefixed amino encoding of CanonicalTxVote.
-
-    Hand-tightened: this runs once per vote on the verify path. Field-key
-    bytes are the precomputed amino constants -- (fnum << 3) | typ3, all
-    < 0x80 -- and the bytes equal the JAX package's (the port's engine
-    tests compare certificates byte for byte).
-    """
-    body = bytearray()
-    if height != 0:
-        body += b"\x09"  # field 1, TYP3_8BYTE
-        body += (height & 0xFFFFFFFFFFFFFFFF).to_bytes(8, "little")
-    if tx_hash:
-        hb = tx_hash.encode()
-        body += b"\x12"  # field 2, TYP3_BYTELEN
-        body += amino.uvarint(len(hb))
-        body += hb
-    # TxKey: fixed-size array, never elided; canonicalization leaves it zero.
-    body += b"\x1a\x20"  # field 3, TYP3_BYTELEN, len 32
-    body += _ZERO_TXKEY
-    ts_body = amino.encode_time_body(timestamp_ns)
-    if ts_body:
-        body += b"\x22"  # field 4, TYP3_BYTELEN
-        body += amino.uvarint(len(ts_body))
-        body += ts_body
-    if chain_id:
-        cb = chain_id.encode()
-        body += b"\x2a"  # field 5, TYP3_BYTELEN
-        body += amino.uvarint(len(cb))
-        body += cb
-    return amino.length_prefixed(bytes(body))
 
 
 @dataclass

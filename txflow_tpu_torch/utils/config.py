@@ -1,7 +1,9 @@
 """Configuration: the mempool caps and the fast-path engine's knobs.
 
 Defaults mirror tendermint v0.31.2's mempool (txvotepool/txvotepool.go:
-198-208 reads config.Mempool) and the JAX package's EngineConfig.
+198-208 reads config.Mempool) and the JAX package's EngineConfig
+(``txflow_tpu/utils/config.py:90-195``: the fields the threaded engine's
+loop, committer and host-prep pool read, with the JAX defaults).
 """
 
 from __future__ import annotations
@@ -42,3 +44,37 @@ class EngineConfig:
     # 2^25.5, 13 = radix 2^13 (K8); None reads TXFLOW_FE_RADIX when the
     # engine builds its verifier. Rotations keep the verifier's field.
     fe_radix: int | None = None
+    # threaded engine (start()/stop()): seconds the loop waits on an empty
+    # pool before it looks again
+    poll_interval: float = 0.002
+    # batch forming: hold a step up to batch_wait while fewer than
+    # min_batch votes are pending; with votes pending and none arriving
+    # for idle_flush seconds, go with what there is (0 disables)
+    min_batch: int = 256
+    batch_wait: float = 0.004
+    idle_flush: float = 0.002
+    # wait after a step whose every vote was deferred to a later step
+    # (in the JAX package, to another engine's verdict cache; the port's
+    # first-occurrence rule always keeps one vote, so it waits only once
+    # such a cache is ported)
+    defer_backoff: float = 0.005
+    # verify calls in flight (submit/collect split, collected and routed
+    # in submission order); <= 1 runs the serial loop
+    pipeline_depth: int = 2
+    # commit effects (TxStore, ABCI apply, pool purge) on a committer
+    # thread; False commits inline inside routing
+    pipeline_commits: bool = True
+    # the committer fences the app Commit once per this many txs (1 =
+    # per tx, as the reference); each tx keeps its own DeliverTx,
+    # certificate and event
+    commit_interval: int = 1
+    # host-prep pool (engine/hostprep.py): workers, the calling thread
+    # included (0 or 1 = prep on the engine thread), and the backend,
+    # "thread" or "process" (worker processes over shared memory; a
+    # failed spawn raises)
+    host_prep_workers: int = 0
+    host_prep_backend: str = "thread"
+    # readback ring depth of the device verifier (parallel/staging.py): a
+    # side CUDA stream copies each step's packed result into pinned host
+    # memory; <= 1 reads back on the caller at collect
+    staging_ring: int = 2

@@ -19,6 +19,7 @@ Both return bit-identical accept/reject masks and quorum decisions.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -27,6 +28,7 @@ import torch
 from .crypto import ed25519 as host_ed
 from .ops import ed25519_batch, field, tally
 from .parallel.mesh import Mesh, sharded_compact_step_packed, to_host
+from .parallel.staging import StagingRing
 from .types.validator import ValidatorSet
 
 # Batch-size buckets: padding to the next bucket keeps the set of batch
@@ -99,13 +101,18 @@ class ReadyTicket(VerifyTicket):
 
 class _FusedDeviceTicket(VerifyTicket):
     """Dispatched fused step: one readback of each shard's packed
-    ``[valid (b/n) | stake | maj23]`` vector at result() (one shard on a
-    single device; the stake segment int64 words when ``wide``)."""
+    ``[valid (b/n) | stake | maj23]`` vector (one shard on a single
+    device; the stake segment int64 words when ``wide``), through the
+    verifier's readback ring when it has one (``slot``), else on the
+    caller at result()."""
 
-    __slots__ = ("_parts", "_n", "_n_slots", "_b", "_b_slots", "_keep", "_wide", "_done")
+    __slots__ = ("_parts", "_ring", "_slot", "_n", "_n_slots", "_b", "_b_slots", "_keep",
+                 "_wide", "_done")
 
-    def __init__(self, parts, n, n_slots, b, b_slots, keep, wide):
+    def __init__(self, parts, ring, n, n_slots, b, b_slots, keep, wide):
         self._parts = parts  # per-shard device tensors, not yet read back
+        self._ring = ring
+        self._slot = None if ring is None else ring.submit(parts)
         self._n = n
         self._n_slots = n_slots
         self._b = b
@@ -118,8 +125,10 @@ class _FusedDeviceTicket(VerifyTicket):
         if self._done is not None:
             return self._done
         # the device->host copies; the host sees [b + 2 * b_slots * n]
-        rows = to_host(self._parts).numpy().reshape(len(self._parts), -1)
-        self._parts = None
+        flat = (to_host(self._parts).numpy() if self._ring is None
+                else self._ring.result(self._slot))
+        rows = flat.reshape(len(self._parts), -1)
+        self._parts = self._slot = None
         bs = self._b // rows.shape[0]
         # valid from every shard; stake and maj23 from shard 0 (each
         # shard holds the same global tally)
@@ -279,10 +288,16 @@ class DeviceVoteVerifier:
     restage keeps it. A set of total power >= 2^30 is tallied in int64
     (``ops/tally.py``), a smaller one in int32, chosen per stage; only a
     total >= 2^62 raises.
+
+    ``submit`` preps on the host-prep pool once one is attached
+    (``ensure_host_pool``) and hands each ticket's output to a readback
+    ring of ``staging_ring`` slots (``parallel/staging.py``: a side CUDA
+    stream per card into pinned memory); ``warm`` runs one all-padding
+    step, ``close`` drains the ring and closes the pool.
     """
 
     def __init__(self, val_set: ValidatorSet, device=None, mesh: Mesh | None = None,
-                 fe_radix: int | None = None):
+                 fe_radix: int | None = None, staging_ring: int = 2):
         if mesh is not None:
             if device is not None:
                 raise ValueError("pass a device or a mesh, not both")
@@ -297,6 +312,12 @@ class DeviceVoteVerifier:
         self.max_batch = max(DEFAULT_BUCKETS)
         self.capacity = _next_pow2(max(val_set.size(), 4))
         self._stage = self._build_stage(val_set)
+        # readback ring (parallel/staging.py), made at the first submit;
+        # depth <= 1 reads back on the caller at result()
+        self.staging_depth = int(staging_ring)
+        self._ring: StagingRing | None = None
+        self._host_pool = None
+        self._mtx = threading.Lock()
 
     @property
     def val_set(self) -> ValidatorSet:
@@ -353,6 +374,51 @@ class DeviceVoteVerifier:
         self._stage = self._build_stage(new_val_set)
         return True
 
+    def ensure_host_pool(self, workers: int, backend: str = "thread"):
+        """Attach the host-prep pool that ``submit`` hands to
+        ``prepare_compact`` (``txflow_tpu/verifier.py:812``), made by the
+        first caller with ``workers`` > 1 (its backend too); later callers
+        get the same pool. Returns it (None while prep is serial). A
+        process pool that cannot start raises."""
+        if workers and workers > 1 and self._host_pool is None:
+            with self._mtx:
+                if self._host_pool is None:
+                    from .engine.hostprep import make_host_pool
+
+                    self._host_pool = make_host_pool(workers, backend, name="hostprep-verify")
+        return self._host_pool
+
+    def staging_stats(self) -> dict | None:
+        """The readback ring's counters (None before the first submit)."""
+        ring = self._ring
+        return None if ring is None else ring.stats()
+
+    def close(self) -> None:
+        """Drain and drop the readback ring and close the host-prep pool; a
+        later submit makes a new ring and preps on its caller."""
+        with self._mtx:
+            ring, self._ring = self._ring, None
+            pool, self._host_pool = self._host_pool, None
+        if ring is not None:
+            ring.close()
+        if pool is not None:
+            pool.close()
+
+    def warm(self, rows: int, n_slots: int) -> None:
+        """Submit and collect one batch of ``rows`` padding rows (no vote:
+        every pre-check false, every slot -1) over ``n_slots`` slots, on
+        every card of the mesh: the kernels' first launch on each card (its
+        ``__constant__`` table copy), the allocator's growth to these
+        shapes and the readback ring's pinned buffers are paid here, not
+        by the first served step."""
+        st = self._stage
+        b = bucket_size(rows, multiple=self._n_shards)
+        batch = ed25519_batch.CompactBatch(
+            np.zeros((b, 64), np.uint8), np.zeros((b, 64), np.uint8), np.zeros(b, np.int32),
+            np.zeros((b, 32), np.uint8), np.zeros(b, np.uint8), np.zeros(b, bool))
+        self._dispatch(batch, np.full(b, -1, np.int32), None, 0, n_slots,
+                       np.zeros(0, bool), st, st.val_set.quorum_power()).result()
+
     def verify_and_tally(
         self,
         msgs: list[bytes],
@@ -385,19 +451,24 @@ class DeviceVoteVerifier:
         tx_slot = np.asarray(tx_slot, dtype=np.int32)
         keep = first_occurrence_mask(tx_slot, val_idx)
         st = self._stage
-        b = bucket_size(n, multiple=self._n_shards)
-        b_slots = bucket_size(n_slots)
-
-        batch = ed25519_batch.prepare_compact(msgs, sigs, val_idx, st.epoch)
+        batch = ed25519_batch.prepare_compact(msgs, sigs, val_idx, st.epoch,
+                                              pool=self._host_pool)
         batch.pre_ok &= keep
-        # pad to the bucket: pre_ok False + slot -1 => contributes nothing
-        pad = b - n
-        slot = np.full(b, -1, np.int32)
+        slot = np.full(bucket_size(n, multiple=self._n_shards), -1, np.int32)
         slot[:n] = tx_slot
+        q = st.val_set.quorum_power() if quorum is None else quorum
+        return self._dispatch(batch, slot, prior_stake, n, n_slots, keep, st, q)
+
+    def _dispatch(self, batch, slot, prior_stake, n, n_slots, keep, st, q) -> VerifyTicket:
+        """Pad the prepared batch to its bucket (pre_ok False and slot -1
+        contribute nothing), copy it to the device, launch the fused step
+        and hand its output to the readback ring."""
+        b = slot.shape[0]
+        b_slots = bucket_size(n_slots)
+        pad = b - batch.size
         prior = np.zeros(b_slots, np.int64 if st.wide else np.int32)
         if prior_stake is not None:
             prior[:n_slots] = np.asarray(prior_stake, dtype=np.int64)
-        q = st.val_set.quorum_power() if quorum is None else quorum
 
         if self.mesh is None:
             def dev(a):
@@ -423,7 +494,19 @@ class DeviceVoteVerifier:
             parts = [tally.compact_step_packed(*args, fe_radix=self.fe_radix)]
         else:
             parts = self._step(*args)
-        return _FusedDeviceTicket(parts, n, n_slots, b, b_slots, keep, st.wide)
+        return _FusedDeviceTicket(parts, self._staging_ring(), n, n_slots, b, b_slots, keep,
+                                  st.wide)
+
+    def _staging_ring(self) -> "StagingRing | None":
+        if self.staging_depth < 2:
+            return None
+        ring = self._ring
+        if ring is None:
+            with self._mtx:
+                if self._ring is None:
+                    self._ring = StagingRing(self.staging_depth)
+                ring = self._ring
+        return ring
 
 
 def _pad(a: np.ndarray, pad: int) -> np.ndarray:
