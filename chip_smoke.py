@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py                # one card: build, kernels, slice (serial, threaded), K8, int64, committee, mesh (serial, threaded)
+    python3 chip_smoke.py                # one card: build, kernels, slice (serial, threaded, lanes), K8, int64, committee, mesh (serial, threaded)
     python3 chip_smoke.py --cross-card   # two or more cards: the kernels on each
     python3 chip_smoke.py --mesh         # four cards: K5/K7 and the mesh cell over them (serial, threaded)
 
@@ -121,6 +121,30 @@ plain version on the CPU and K3 also against the golden model.
    first step's time against the rest, busy seconds per thread, the prep
    pool's wait, the ring's hidden_s and the device's busy share.
 
+9. Lanes, after phase 8's slice runs: the JAX engine's default served path
+   on the slice cell with every 8th tx carrying the fee prefix ``fee=10;``
+   (512 txs, 8192 votes in the priority lane), the pools wired as a node
+   wires them (FeeLaneClassifier on the mempool, the vote pool asking the
+   mempool for each vote's lane) before any ingest. The serial engine runs
+   first (the reference), then TxFlow.start() with the JAX defaults
+   (coalesce, coalesce_linger 4 ms, lane_split, priority_linger 1 ms,
+   priority_bucket_cap 512, min_batch 256, max_batch 16384, max_slots
+   4096, pipeline_depth 2, the committer, process host prep) three times
+   on cold vote copies: a backlog (every vote in the pool before start()),
+   a feeder thread at 10,000 votes/s (check_tx_many in chunks of 100, the
+   corpus' shuffled order), and the same feed with speculative_commit.
+   Checks: certificate rows and delivered txs equal the serial engine's,
+   the app state its own delivery log folded, priority batches, every bulk
+   drain a coalescer target or a counted flush, K3 and K4 launched, no
+   host verify, speculative commits in the third run, stop() leaving
+   nothing. Prints per run wall time, committed votes/s, the coalescer's
+   and the lanes' counters, batches per rung with each rung's first step
+   against the rest, device ms and busy share, GC seconds, and under the
+   feed the commit latency per lane (a tx's DeliverTx minus the feed time
+   of its certificate's last vote), p50 and p99. K3 is then held against
+   its plain version and timed at every rung the phase dispatched, one
+   kernel row each.
+
 ``--mesh`` runs only phase 5, its kernel rows and the threaded mesh cell,
 over 4 distinct cards: the engine builds its own mesh from mesh_devices=4
 (make_mesh).
@@ -146,6 +170,7 @@ import numpy as np
 import torch
 
 from txflow_tpu_torch.abci import AppConns, KVStoreApplication
+from txflow_tpu_torch.admission import FeeLaneClassifier
 from txflow_tpu_torch.committee import BatchCertVerifier, CommitteeSchedule
 from txflow_tpu_torch.committee.certverify import _rung
 from txflow_tpu_torch.crypto import ed25519 as host_ed
@@ -164,7 +189,9 @@ from txflow_tpu_torch.sync import SyncConfig, SyncError, SyncManager, serve_rang
 from txflow_tpu_torch.types import MockPV, TxVote, Validator, ValidatorSet
 from txflow_tpu_torch.types.tx_vote import canonical_sign_bytes
 from txflow_tpu_torch.utils.config import EngineConfig, MempoolConfig
-from txflow_tpu_torch.verifier import DeviceVoteVerifier, ScalarVoteVerifier, first_occurrence_mask
+from txflow_tpu_torch.verifier import (
+    DeviceVoteVerifier, ScalarVoteVerifier, bucket_size, first_occurrence_mask,
+)
 
 CHAIN_ID = "txflow-smoke"
 HEIGHT = 1
@@ -197,6 +224,14 @@ MESH_BYZ_P = (0.25, 0.25, 0.2, 0.15, 0.1, 0.05)
 # row's ms covers both
 VERIFY_LAUNCH_NOTE = {"kernel_launches_per_count": 2,
                       "launch_note": "one counted launch = txf_verify_kernel + txf_verify_encode_kernel"}
+# lanes phase: every 8th tx of the slice cell carries the fee prefix (512
+# txs, 8192 votes in the priority lane); the feed rate is about half the
+# threaded slice's backlog rate (21,835 votes/s, NVIDIA H100 80GB HBM3 at
+# 700 W), in chunks of 100 votes
+LANE_FEE = b"fee=10;"
+LANE_FEE_EVERY = 8
+LANE_RATE = 10_000  # votes/s
+LANE_CHUNK = 100
 # published HBM rates (NVIDIA data sheets); SXM is the default
 HBM_BYTES_PER_S = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
 
@@ -289,11 +324,13 @@ class Corpus:
     flipped signature byte, or a wrong-chain signature as
     MockPV(break_tx_vote_signing=True) makes), ``byz[k]`` of them on a tx
     with probability ``byz_p[k]``, spread so that some txs stay below
-    quorum. The defaults are the slice cell's 16 validators."""
+    quorum. The defaults are the slice cell's 16 validators. With
+    ``fee_every`` k, every k-th tx carries the fee prefix ``fee=10;`` (the
+    priority lane of the admission classifier)."""
 
     def __init__(self, seed: int, n_vals: int = N_VALS, n_txs: int = N_TXS,
                  byz=tuple(range(6)), byz_p=(0.2, 0.2, 0.2, 0.2, 0.1, 0.1),
-                 prefix: bytes = b"stx"):
+                 prefix: bytes = b"stx", fee_every: int = 0):
         rng = np.random.default_rng(seed)
         self.n_vals, self.n_txs = n_vals, n_txs
         self.seeds = [rng.bytes(32) for _ in range(n_vals)]
@@ -305,7 +342,8 @@ class Corpus:
         self.val_seeds = [seed_of[v.address] for v in self.val_set]
         self.powers = [v.voting_power for v in self.val_set]
         self.quorum = self.val_set.quorum_power()
-        self.txs = [prefix + b"%05d=%d" % (i, i) for i in range(n_txs)]
+        self.txs = [(LANE_FEE if fee_every and i % fee_every == 0 else b"") + prefix
+                    + b"%05d=%d" % (i, i) for i in range(n_txs)]
         # byzantine votes per tx (slice cell: 0..5 of 16, mean 2 = 1/8)
         n_byz = np.asarray(byz)[rng.choice(len(byz), size=n_txs, p=list(byz_p))]
         self.votes: list[TxVote] = []
@@ -658,11 +696,15 @@ def quarter_checks(card: dict, k3: dict, dev, ptx: dict) -> dict:
 # Phase 3: the slice
 
 
-def _node(corpus: Corpus, config: EngineConfig, verifier=None, val_set=None, votes=None):
+def _node(corpus: Corpus, config: EngineConfig, verifier=None, val_set=None, votes=None,
+          lanes: bool = False, feed: bool = True, app=None):
     """One node's pools, stores and engine over ``val_set`` (default the
-    corpus' set), the corpus' txs in the mempool and its votes (or
-    ``votes``, copies of them) in the vote pool in arrival order."""
-    conns = AppConns(KVStoreApplication())
+    corpus' set), the corpus' txs in the mempool and, with ``feed``, its
+    votes (or ``votes``, copies of them) in the vote pool in arrival order.
+    With ``lanes`` the pools are wired as a node wires them before any
+    ingest: the fee classifier on the mempool, the vote pool asking the
+    mempool for each vote's tx lane. ``app`` replaces the kvstore app."""
+    conns = AppConns(app or KVStoreApplication())
     n_txs, n_votes = len(corpus.txs), len(corpus.votes)
     mempool = Mempool(MempoolConfig(size=2 * n_txs, cache_size=4 * n_txs), conns.mempool)
     commitpool = Mempool(MempoolConfig(size=2 * n_txs, cache_size=4 * n_txs))
@@ -670,10 +712,14 @@ def _node(corpus: Corpus, config: EngineConfig, verifier=None, val_set=None, vot
     store = TxStore(MemDB())
     flow = TxFlow(CHAIN_ID, HEIGHT, val_set or corpus.val_set, votepool, mempool, commitpool,
                   TxExecutor(conns.consensus, mempool), store, config=config, verifier=verifier)
+    if lanes:
+        mempool.lane_of = FeeLaneClassifier(1)
+        votepool.lane_of_vote = lambda v: mempool.lane_of_key(v.tx_key)
     require(not any(mempool.check_tx_many(corpus.txs)), "mempool rejected a tx")
-    votes = corpus.votes if votes is None else votes
-    require(not any(votepool.check_tx_many([votes[i] for i in corpus.order])),
-            "vote pool rejected a vote")
+    if feed:
+        votes = corpus.votes if votes is None else votes
+        require(not any(votepool.check_tx_many([votes[i] for i in corpus.order])),
+                "vote pool rejected a vote")
     return flow, store, conns.app
 
 
@@ -734,7 +780,7 @@ def _outcome(corpus: Corpus, flow, store, app, scale: int = 1) -> dict:
             f"committed {int(committed.sum())} txs, expected {int(corpus.expect_commit.sum())}")
     require(0 < committed.sum() < len(hashes), "the byzantine spread left no tx below quorum")
     want_keys = {tx.split(b"=")[0] for tx, c in zip(corpus.txs, committed) if c}
-    require(set(app.state) == want_keys and app.tx_count == len(want_keys), "app state")
+    require(set(app.state) == want_keys and app.tx_count == int(committed.sum()), "app state")
     byz = {(v.tx_hash, v.validator_address): b for v, b in zip(corpus.votes, corpus.byzantine)}
     power_of = {v.address: v.voting_power for v in flow.val_set}
     quorum = flow.val_set.quorum_power()
@@ -957,8 +1003,11 @@ def _wait_quiescent(flow, timeout: float) -> float:
     first, stable = None, 0
     while time.perf_counter() < deadline:
         require(flow.error is None, f"an engine thread failed: {flow.error!r}")
-        # cheap reads: this thread shares the interpreter lock with the engine's
-        idle = (flow._drain_cursor >= flow.tx_vote_pool.seq() and not flow._retry
+        # cheap reads: this thread shares the interpreter lock with the
+        # engine's; both lanes' cursors and retry lists
+        pool = flow.tx_vote_pool
+        idle = (flow._drain_cursor >= pool.seq() and flow._prio_drain_cursor >= pool.prio_seq()
+                and not flow._retry and not flow._retry_prio
                 and flow._pipe_in_flight == 0 and flow.commits_drained())
         now = time.perf_counter()
         if not idle:
@@ -986,12 +1035,15 @@ def threaded_phase(corpus: Corpus, dev, ref: dict, serial: dict, label: str, mes
     thread, worker process, segment or ring. ``serial`` is the serial
     run of the same cell in this call, printed beside. With
     ``pipeline_commits`` False the routing commits inline (no committer
-    thread): the diagnostic run that shows what the committer costs."""
+    thread): the diagnostic run that shows what the committer costs. The
+    engine runs without the coalescer and the priority lane (the lanes
+    phase drives those), as this phase was first measured."""
     workers = os.cpu_count() or 1
     cfg = EngineConfig(max_batch=max_batch, max_slots=max_slots, device=str(dev), fe_radix=25,
                        mesh_devices=MESH_SHARDS if mesh is not None else 0,
                        pipeline_depth=2, pipeline_commits=pipeline_commits, staging_ring=2,
-                       host_prep_backend="process", host_prep_workers=workers)
+                       host_prep_backend="process", host_prep_workers=workers,
+                       coalesce=False, lane_split=False)
     verifier = (DeviceVoteVerifier(corpus.val_set, mesh=mesh, fe_radix=25, staging_ring=2)
                 if mesh is not None and not engine_builds_mesh else None)
     flow, store, app = _node(corpus, cfg, verifier, votes=_cold_copies(corpus.votes))
@@ -1125,6 +1177,338 @@ def serial_again(corpus: Corpus, dev, ref: dict, label: str) -> dict:
         + ", ".join(f"{k} {v:.1f}" for k, v in run["stage_ms_total"].items())
         + f"; garbage collector {run['gc_s']:.3f} s {run['gc_collections']}")
     return run
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the JAX engine's default served path -- the priority and bulk
+# lanes fed by the fee classifier, the shape-stable coalescer, speculative
+# commit -- as a backlog and under an arrival rate
+
+
+class StampedKV(KVStoreApplication):
+    """The kvstore app, keeping each DeliverTx with the host clock."""
+
+    def __init__(self):
+        super().__init__()
+        self.delivered: list[tuple[bytes, float]] = []
+
+    def deliver_tx(self, tx):
+        res = super().deliver_tx(tx)
+        self.delivered.append((tx, time.perf_counter()))
+        return res
+
+
+def _lanes_config(dev, speculative: bool) -> EngineConfig:
+    """The JAX engine's defaults, spelled out, over the slice cell's
+    widths, with the threaded phase's committer and process host prep."""
+    return EngineConfig(max_batch=MAX_BATCH, max_slots=4096, device=str(dev), fe_radix=25,
+                        min_batch=256, coalesce=True, coalesce_linger=0.004, lane_split=True,
+                        priority_linger=0.001, priority_bucket_cap=512, pipeline_depth=2,
+                        pipeline_commits=True, staging_ring=2, host_prep_backend="process",
+                        host_prep_workers=os.cpu_count() or 1, speculative_commit=speculative)
+
+
+def _feed_at_rate(votepool, votes: list, order, rate: float, chunk: int, stamps: dict,
+                  out: dict) -> None:
+    """Feed ``votes`` in ``order`` to the pool through check_tx_many in
+    chunks of ``chunk`` at ``rate`` votes/s; each vote's pool key is stamped
+    with the host clock just before its chunk goes in. A failure is kept in
+    ``out["error"]``."""
+    try:
+        t0 = out["t0"] = time.perf_counter()
+        rejected = 0
+        for base in range(0, len(order), chunk):
+            due = t0 + base / rate
+            now = time.perf_counter()
+            if due > now:
+                time.sleep(due - now)
+            part = [votes[i] for i in order[base : base + chunk]]
+            t = time.perf_counter()
+            for v in part:
+                stamps[v.vote_key()] = t
+            rejected += sum(e is not None for e in votepool.check_tx_many(part))
+        out["t_end"] = time.perf_counter()
+        out["rejected"] = rejected
+    except BaseException as exc:  # raised by the caller
+        out["error"] = exc
+
+
+def _first_vs_rest(values: list) -> dict:
+    return {"n": len(values), "first": values[0],
+            "rest_median": statistics.median(values[1:]) if len(values) > 1 else None}
+
+
+def _pct(xs, q):
+    return float(np.percentile(np.asarray(xs), q)) if xs else None
+
+
+def lanes_serial_ref(corpus: Corpus, dev) -> dict:
+    """The serial engine (step(), no lanes wired) on the lanes corpus: the
+    outcome known by construction, its certificate rows, delivered txs and
+    app state, which every lanes run must reproduce."""
+    app = StampedKV()
+    flow, store, app = _node(corpus, EngineConfig(max_batch=MAX_BATCH, device=str(dev),
+                                                  fe_radix=25), votes=_cold_copies(corpus.votes),
+                             app=app)
+    run = _drive(flow, dev)
+    res = _outcome(corpus, flow, store, app)
+    res["delivered"] = sorted(tx for tx, _ in app.delivered)
+    res["state"] = dict(app.state)
+    log(f"lanes serial reference: {res['committed_txs']}/{len(corpus.txs)} txs committed as "
+        f"constructed ({sum(tx.startswith(LANE_FEE) for tx in res['delivered'])} with the fee "
+        f"prefix), wall {run['wall_s']:.3f} s over {run['steps']} steps")
+    return res
+
+
+def lanes_run(corpus: Corpus, dev, ref: dict, label: str, rate: float | None = None,
+              speculative: bool = False) -> dict:
+    """The lanes corpus' votes (cold copies) through TxFlow.start() on the
+    default served path: with ``rate`` None every vote is in the pool
+    before start() (a backlog); else a feeder thread calls check_tx_many in
+    chunks of LANE_CHUNK at ``rate`` votes/s after start(). Checks: the
+    committed set, certificate rows and delivered txs equal ``ref`` (the
+    serial engine's), the app state equal to its own delivery log folded
+    (the fee txs share the kvstore key "fee", so their last value follows
+    the commit order, which the lanes change), priority batches, every
+    bulk drain a coalescer target or a counted flush, every priority drain
+    counted, K3 and K4 launched once a ticket and once a warm step (one at
+    each rung up to the drain cap), no host verify, speculative commits when on, and stop() leaving no thread,
+    worker, segment or ring. Returns the run's numbers."""
+    votes = _cold_copies(corpus.votes)
+    flow, store, app = _node(corpus, _lanes_config(dev, speculative), votes=votes, lanes=True,
+                             feed=rate is None, app=StampedKV())
+    votepool = flow.tx_vote_pool
+    by_thread: dict = {}
+    route_ends: list = []
+    events: list = []
+    tally_step = tally.compact_step_packed
+    _, device_ms = _time_stages(flow, dev, by_thread, route_ends, events)
+    drains: list = []  # (lane, limit) of every drain the loop asked for
+    submits: list = []  # (lane, rung, host ms of the submit stage), in order
+    prep_batch, submit = flow._prep_batch, flow._submit_prep
+
+    def drain_rec(limit=None, lane=None):
+        drains.append((lane, limit))
+        return prep_batch(limit, lane)
+
+    live_after_submit: list = []  # the host-prep pool's live segments after each submit
+
+    def submit_rec(prep):
+        t = time.perf_counter()
+        try:
+            return submit(prep)
+        finally:
+            submits.append((prep.lane, bucket_size(len(prep.votes), flow.verifier.buckets),
+                            (time.perf_counter() - t) * 1e3))
+            live_after_submit.append(flow._host_pool.stats()["live_segments"])
+
+    flow._prep_batch, flow._submit_prep = drain_rec, submit_rec
+    host_calls, restore_host = _count_host_verifies()
+    stamps: dict = {}
+    feed: dict = {}
+    _lib.reset_launches()
+    try:
+        with GcClock() as gcc:
+            t_start = time.perf_counter()
+            flow.start()
+            t0 = time.perf_counter()
+            ring, pool = flow.verifier._ring, flow._host_pool
+            if rate is not None:
+                feeder = threading.Thread(target=_feed_at_rate, name="feeder", args=(
+                    votepool, votes, corpus.order, rate, LANE_CHUNK, stamps, feed))
+                feeder.start()
+                feeder.join()
+                require("error" not in feed, f"{label}: the feeder failed: {feed.get('error')!r}")
+                require(feed["rejected"] == 0, f"{label}: the pool rejected {feed['rejected']} votes")
+                t0 = feed["t0"]
+            t_end = _wait_quiescent(flow, timeout=300.0)
+        stats = flow.pipeline_stats()
+        ring_stats, pool_stats = ring.stats(), pool.stats()
+    finally:
+        restore_host()
+        tally.compact_step_packed = tally_step
+        flow.stop()  # raises a thread's error
+    launches = dict(_lib.launches)
+    steps = stats["steps"]
+    co, lanes, spec = stats["coalesce"], stats["lanes"], stats["spec"]
+    log(f"{label}: {steps} steps + warm steps at {flow.warm_rungs}, launches {launches}, host "
+        f"verifies {host_calls['n']}; coalescer {co}; lanes {lanes}; spec {spec}")
+    # one launch of each a ticket and a warm step (one at each rung up to
+    # the drain cap)
+    warm = len(flow.warm_rungs)
+    require(flow.warm_rungs == [MAX_BATCH, 4096, 1024, 256, 64],
+            f"{label}: warm steps at {flow.warm_rungs}")
+    want = {"verify": steps + warm, "tally": steps + warm}
+    require({k: launches[k] for k in want} == want, f"{label}: launches {launches}, want {want}")
+    require(len(submits) == steps, f"{label}: {len(submits)} submits for {steps} steps")
+    require(host_calls["n"] == 0, f"{label}: a host (scalar) verify ran")
+    require(ring_stats["stream_readbacks"] == steps + warm and ring_stats["sync_readbacks"] == 0
+            and ring_stats["host_readbacks"] == 0 and ring_stats["in_flight"] == 0,
+            f"{label}: a readback missed the side stream: {ring_stats}")
+    # a backlog drains full rungs past the pool's gate; under the feed the
+    # small batches prep inline, as _POOL_MIN_VOTES means them to
+    require(pool_stats["backend"] == "process" and (rate is not None or pool_stats["shm_calls"] > 0),
+            f"{label}: host prep never ran on the process pool: {pool_stats}")
+    # each pool call unlinks its segments before it returns, so two tickets
+    # in flight (a priority and a bulk one) never share one
+    require(max(live_after_submit, default=0) == 0,
+            f"{label}: a shared-memory segment outlived its submit: {max(live_after_submit)}")
+    require(pool.alive_workers() == 0 and pool.stats()["live_segments"] == 0
+            and flow._thread is None and flow._committer is None
+            and flow.verifier.staging_stats() is None,
+            f"{label}: stop() left a worker, segment, thread or ring behind")
+    require(len(device_ms) == steps, f"{label}: {len(device_ms)} timed device steps for {steps}")
+    require(len(events) == warm, f"{label}: {len(events)} untimed steps, {warm} warm steps")
+    # the served path: both lanes, the coalescer on the ladder
+    require(co["enabled"] and lanes["enabled"] and lanes["prio_batches"] > 0,
+            f"{label}: the coalescer or the priority lane never ran")
+    require(co["targets"] == [256, 1024, 4096, 16384] and lanes["prio_targets"] == [64, 256],
+            f"{label}: coalescer targets {co['targets']}, priority {lanes['prio_targets']}")
+    require(all(lane in ("prio", "bulk") for lane, _ in drains), f"{label}: a merged drain ran")
+    bulk = [lim for lane, lim in drains if lane == "bulk"]
+    prio = [lim for lane, lim in drains if lane == "prio"]
+    n_full = sum(lim in co["targets"] for lim in bulk)
+    require(n_full == co["full_batches"] and len(bulk) - n_full == co["linger_flushes"],
+            f"{label}: bulk drains {len(bulk)} ({n_full} at a target) against the coalescer's "
+            f"{co['full_batches']} full batches and {co['linger_flushes']} flushes")
+    require(len(prio) == lanes["prio_full_batches"] + lanes["prio_linger_flushes"],
+            f"{label}: {len(prio)} priority drains against the lane's counts")
+    require(not speculative or spec["commits"] > 0, f"{label}: no speculative commit")
+    require(spec["enabled"] == speculative, f"{label}: spec {spec}")
+    res = _outcome(corpus, flow, store, app)
+    require(res["rows"] == ref["rows"], f"{label}: certificate bytes differ from the serial engine")
+    delivered = [tx for tx, _ in app.delivered]
+    require(sorted(delivered) == ref["delivered"], f"{label}: delivered txs differ from serial")
+    folded: dict = {}
+    for tx in delivered:
+        k, v = tx.split(b"=", 1)
+        folded[k] = v
+    require(app.state == folded, f"{label}: app state != its own delivery log")
+    require({k: v for k, v in app.state.items() if k != b"fee"}
+            == {k: v for k, v in ref["state"].items() if k != b"fee"},
+            f"{label}: app state differs from the serial engine's")
+
+    wall = t_end - t0
+    rungs: dict = {}
+    for (lane, rung, sub_ms), dms in zip(submits, device_ms):
+        r = rungs.setdefault(f"{lane} {rung}", {"submit_ms": [], "device_ms": []})
+        r["submit_ms"].append(sub_ms)
+        r["device_ms"].append(dms)
+    by_rung = {k: {"batches": len(v["submit_ms"]), "submit_ms": _first_vs_rest(v["submit_ms"]),
+                   "device_ms": _first_vs_rest(v["device_ms"])} for k, v in sorted(rungs.items())}
+    out = {"votes": len(corpus.votes), "txs": len(corpus.txs),
+           "fee_txs": sum(tx.startswith(LANE_FEE) for tx in corpus.txs),
+           "rate_votes_per_s": rate, "speculative": speculative,
+           "start_s": t0 - t_start if rate is None else None, "warm_s": flow.warm_s,
+           "warm_rungs": flow.warm_rungs, "steps": steps, "wall_s": wall,
+           "committed_txs": res["committed_txs"], "committed_votes": res["committed_votes"],
+           "committed_votes_per_s": res["committed_votes"] / wall,
+           "device_ms_per_step": device_ms, "device_busy_share": sum(device_ms) / (wall * 1e3),
+           "gc_s": gcc.s, "gc_collections": gcc.collections,
+           "coalesce": co, "lanes": lanes, "spec": spec, "by_rung": by_rung,
+           "launches_by_rung": {k: v["batches"] for k, v in by_rung.items()},
+           "prep_pool_wait_s": stats["prep_pool_wait_s"], "pool_shm_calls": pool_stats["shm_calls"],
+           "busy_s_by_thread": {n: sum(st.values()) for n, st in by_thread.items()},
+           "launches": launches, "certificates_equal_serial": True}
+    if rate is not None:
+        out["feed_s"] = feed["t_end"] - feed["t0"]
+        out["fed_votes_per_s"] = len(votes) / out["feed_s"]
+        commit_t = {hashlib.sha256(tx).hexdigest().upper(): t for tx, t in app.delivered}
+        lat: dict = {"priority": [], "bulk": []}
+        for tx in corpus.txs:
+            h = hashlib.sha256(tx).hexdigest().upper()
+            if h not in res["rows"]:
+                continue
+            cert = flow.load_commit(h)
+            last = max(stamps[hashlib.sha256(cs.signature).digest()] for cs in cert.commits)
+            lat["priority" if tx.startswith(LANE_FEE) else "bulk"].append(
+                (commit_t[h] - last) * 1e3)
+        out["commit_latency_ms"] = {
+            lane: {"n": len(xs), "p50": _pct(xs, 50), "p99": _pct(xs, 99), "max": max(xs)}
+            for lane, xs in lat.items()}
+    log(f"{label}: wall {wall:.3f} s, {out['committed_votes_per_s']:.0f} committed votes/s"
+        + (f" (fed at {out['fed_votes_per_s']:.0f} votes/s over {out['feed_s']:.3f} s)"
+           if rate is not None else f"; start {out['start_s']:.2f} s")
+        + f"; {steps} steps: coalescer {co['full_batches']} full, {co['linger_flushes']} "
+        f"flushes; priority {lanes['prio_batches']} batches, {lanes['prio_votes']} votes "
+        f"({lanes['prio_full_batches']} full, {lanes['prio_linger_flushes']} flushes); "
+        f"speculative commits {spec['commits']}, saved {spec['saved_s']:.6f} s")
+    if rate is not None:
+        log(f"{label}: commit latency (DeliverTx minus the feed of the certificate's last vote) "
+            + "; ".join(f"{lane} n {v['n']} p50 {v['p50']:.2f} ms p99 {v['p99']:.2f} ms max "
+                        f"{v['max']:.2f} ms" for lane, v in out["commit_latency_ms"].items()))
+    def first_rest(d):
+        rest = "-" if d["rest_median"] is None else f"{d['rest_median']:.3f}"
+        return f"{d['first']:.3f}/{rest}"
+
+    log(f"{label}: batches by lane and rung, first step against the median of the rest "
+        "(submit stage host ms; device ms): " + "; ".join(
+            f"{k}: {v['batches']}, submit {first_rest(v['submit_ms'])}, device "
+            f"{first_rest(v['device_ms'])}" for k, v in by_rung.items()))
+    log(f"{label}: device {sum(device_ms):.1f} ms over {steps} steps = "
+        f"{out['device_busy_share'] * 100:.3f}% of the wall; garbage collector {gcc.s:.3f} s "
+        f"{gcc.collections}; busy s by thread " + ", ".join(
+            f"{k} {v:.3f}" for k, v in out["busy_s_by_thread"].items()))
+    log(f"{label}: {res['committed_txs']}/{len(corpus.txs)} txs committed as constructed; "
+        "certificate bytes, delivered txs and app state equal to the serial engine's")
+    return out
+
+
+def lanes_phase(dev) -> dict:
+    """The lanes corpus, the serial reference, then the three runs on cold
+    vote copies: backlog, rate, rate + speculative."""
+    t0 = time.perf_counter()
+    corpus = Corpus(SEED, fee_every=LANE_FEE_EVERY)
+    log(f"lanes corpus: {len(corpus.votes)} votes signed in {corpus.sign_s:.1f} s "
+        f"({time.perf_counter() - t0:.1f} s with setup); "
+        f"{sum(tx.startswith(LANE_FEE) for tx in corpus.txs)} txs with the fee prefix")
+    ref = lanes_serial_ref(corpus, dev)
+    runs = {"backlog": lanes_run(corpus, dev, ref, "lanes backlog"),
+            "rate": lanes_run(corpus, dev, ref, "lanes rate", rate=LANE_RATE),
+            "rate_speculative": lanes_run(corpus, dev, ref, "lanes rate + speculative",
+                                          rate=LANE_RATE, speculative=True)}
+    rungs: dict = {}
+    for run in runs.values():
+        for k, n in run["launches_by_rung"].items():
+            rung = int(k.split()[1])
+            rungs[rung] = rungs.get(rung, 0) + n
+    return {"sign_s": corpus.sign_s, "runs": runs, "k3_launches_by_rung": rungs}
+
+
+def k3_rung_rows(card: dict, k3: dict, dev, launches_by_rung: dict) -> list[dict]:
+    """K3 at each rung the lanes phase dispatched: ``rung`` rows of the K3
+    batch (from row 60, past its rows made to fail the host pre-checks,
+    where the batch is long enough), held against the plain version and
+    timed (many launches in one CUDA-event window) with its bound;
+    ``launches`` is the count of K3 launches at that rung in the lanes
+    phase's three runs."""
+    rows = []
+    per_row = [k3["args"][i] for i in (0, 1, 2, 5, 6, 7)]
+    tables, quarters = k3["args"][3], k3["args"][4]
+    for rung in sorted(launches_by_rung):
+        off = max(0, min(60, per_row[0].shape[0] - rung))
+        s_n, h_n, v_i, r_y, r_s, ok = (t[off : off + rung] for t in per_row)
+        args = (s_n, h_n, v_i, tables, quarters, r_y, r_s, ok)
+        got = ed25519_batch.verify_kernel_gather(*args)
+        want = ed25519_batch.verify_kernel_gather_plain(*args)
+        torch.cuda.synchronize()
+        require(bool((got == want).all()), f"K3 at rung {rung} != plain")
+        ms = cuda_ms_window(lambda: ed25519_batch.verify_kernel_gather(*args),
+                            50 if rung <= 4096 else 10)
+        pms = cuda_ms(lambda: ed25519_batch.verify_kernel_gather_plain(*args), 1)
+        n_ok = int(ok.sum())
+        bnd, by = bound_ms(card, nbytes(*args) + nbytes(curve.device_base_quarters(dev, 25))
+                           + rung * 4, n_ok * ed25519_batch.mads_per_signature(25))
+        rows.append(dict(name=f"K3 ed25519 verify at rung {rung} (txf_verify, lanes phase)",
+                         route="cuda", source="txflow_tpu_torch/csrc/verify.cu",
+                         replaces="txflow_tpu/ops/ed25519_batch.py:384",
+                         launches=launches_by_rung[rung],
+                         max_abs_err=int((got.int() - want.int()).abs().max()), ms=ms,
+                         plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=None,
+                         **VERIFY_LAUNCH_NOTE, shape=f"{rung} rows, {n_ok} past the host pre-checks"))
+        log(f"K3 at rung {rung}: bit-exact; {ms:.4f} ms (plain {pms:.1f} ms, bound {bnd:.5f} ms "
+            f"by {by}); {launches_by_rung[rung]} launches in the lanes phase")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2411,9 +2795,11 @@ def main() -> int:
     ths_inline = threaded_phase(corpus, dev, sl_res, sl, "threaded slice, commits inline",
                                 pipeline_commits=False)
     sl_again = serial_again(corpus, dev, sl_res, "serial slice again")
+    lp = lanes_phase(dev)
     by_name = {"K1": "verify", "K2": "verify", "K3": "verify", "K4": "tally"}
     for r in rows:
         r["launches"] = sl["launches"][by_name[r["name"][:2]]]
+    rows += k3_rung_rows(card, k3, dev, lp["k3_launches_by_rung"])
     # the radix-2^13 field (K8): the slice, a sharded step and K5 over the
     # round-robin mesh, all between one reset and one read of the counts
     mesh_rr = round_robin_mesh(MESH_SHARDS)
@@ -2463,13 +2849,16 @@ def main() -> int:
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "ptxas": ptx, "kernels": rows, "txf_verify_quarters": qc, "slice": sl,
                    "threaded_slice": ths, "threaded_slice_commits_inline": ths_inline,
-                   "serial_slice_again": sl_again,
+                   "serial_slice_again": sl_again, "lanes": lp,
                    "radix13_slice": s13, "int64_slice": wide,
                    "ab_k3_verify13": ab, "committee": cm, "mesh": mp, "threaded_mesh": thm},
                   f, indent=1)
     for name, run in (("threaded_slice", ths), ("threaded_slice_commits_inline", ths_inline),
                       ("threaded_mesh", thm)):
         log(json.dumps({name: _threaded_json(run)}))
+    for name, run in lp["runs"].items():
+        log(json.dumps({f"lanes_{name}": {k: v for k, v in run.items()
+                                          if k not in ("device_ms_per_step",)}}))
     for name, run in (("radix13_slice", s13), ("int64_slice", wide)):
         log(json.dumps({name: {k: v for k, v in run.items() if k != "step_s"}}))
     log(json.dumps({"ab_k3_verify13": ab}))

@@ -234,7 +234,7 @@ def test_engine_on_process_backend_matches_jax_golden(kind):
     verifier = DeviceVoteVerifier(vals_p, device="cpu") if kind == "device" else None
     flow, mempool, votepool, store, app = make_port_engine(
         vals_p, verifier, use_device=kind == "device", max_batch=1024, min_batch=1,
-        host_prep_workers=3, host_prep_backend="process")
+        host_prep_workers=3, host_prep_backend="process", coalesce=False, lane_split=False)
     for tx in txs:
         mempool.check_tx(tx)
     for v in stream:  # all queued before start: one pooled drain

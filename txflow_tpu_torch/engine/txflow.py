@@ -19,20 +19,35 @@ a time, verifying each ed25519 signature on the host under a mutex
    txflow/service.go:216-232).
 
 ``step()`` runs one round serially. ``start()`` / ``stop()`` serve the
-pool from threads instead (``txflow_tpu/engine/txflow.py:465-664``, the
-branch with no coalescer and no priority lane): ``_run_pipelined`` keeps
-up to ``pipeline_depth`` verify calls in flight -- batch N+1's drain and
-host prep overlap batch N on the card -- and collects and routes them in
-submission order, so certificates are byte-identical to the serial loop;
-a committer thread takes the store, ABCI and pool-purge effects of each
-decided commit (``pipeline_commits``); a host-prep pool
-(``engine/hostprep.py``, ``host_prep_workers``) encodes sign bytes and the
-verifier's compact prep in worker processes; the device verifier reads
-each step back through its ring (``parallel/staging.py``). ``start()``
-first builds the kernels and runs one all-padding step at the drain
-bucket (``DeviceVoteVerifier.warm``), so the first served step pays no
-build or first launch. A failure in a thread is kept and raised by
-``stop()``; nothing falls back.
+pool from threads instead, on the JAX engine's default served path
+(``txflow_tpu/engine/txflow.py:136-664``):
+
+- **Lanes** (``lane_split``): votes whose tx the admission classifier put
+  in the priority lane (``TxVotePool.lane_of_vote``, frozen at ingest)
+  are drained from the pool's priority log by their own coalescer (short
+  ``priority_linger``, targets up to ``priority_bucket_cap``) ahead of
+  every bulk dispatch; the bulk lane walks the main log without them.
+  Each lane requeues into its own retry list.
+- **Coalescing** (``coalesce``): with a verifier that has a bucket ladder
+  (``DeviceVoteVerifier.buckets``), the bulk lane dispatches only full
+  rungs and holds a partial batch until ``coalesce_linger`` or an idle
+  pool; without one it forms batches by ``min_batch``/``batch_wait``.
+- **Pipelining**: ``_run_pipelined`` keeps up to ``pipeline_depth`` verify
+  calls in flight (``adaptive_depth`` steers that number) and collects
+  and routes them in submission order; ``speculative_commit`` routes the
+  votes of slots whose device maj23 bit is set first. Certificates are
+  byte-identical to the serial loop's; with lanes or speculation only the
+  commit order across txs may differ.
+- A committer thread takes the store, ABCI and pool-purge effects of each
+  decided commit (``pipeline_commits``); a host-prep pool
+  (``engine/hostprep.py``, ``host_prep_workers``) encodes sign bytes and
+  the verifier's compact prep in worker processes; the device verifier
+  reads each step back through its ring (``parallel/staging.py``).
+
+``start()`` first builds the kernels and runs one all-padding step at the
+drain bucket (``DeviceVoteVerifier.warm``), so the first served step pays
+no build or first launch. A failure in a thread, the coalescers and lanes
+included, is kept and raised by ``stop()``; nothing falls back.
 
 At a block boundary ``update_state`` moves the engine to a new height and,
 on a rotated set (a new epoch's committee), restages the verifier's tables
@@ -68,6 +83,7 @@ from ..utils.config import EngineConfig
 from ..ops import _lib
 from ..parallel.mesh import make_mesh
 from ..verifier import DeviceVoteVerifier, ScalarVoteVerifier
+from .adaptive import AdaptiveDepthController
 from .execution import TxExecutor
 from .hostprep import make_host_pool
 
@@ -86,10 +102,10 @@ class _StepPrep:
 
     __slots__ = (
         "keys", "votes", "slots", "n_slots", "prior", "msgs", "sigs",
-        "val_idx", "dropped", "verifier", "drain_seq", "t0", "submit_t",
+        "val_idx", "dropped", "verifier", "drain_seq", "t0", "submit_t", "lane",
     )
 
-    def __init__(self, drain_seq: int = 0, t0: float = 0.0):
+    def __init__(self, drain_seq: int = 0, t0: float = 0.0, lane: str | None = None):
         self.keys: list[bytes] = []
         self.votes: list[TxVote] = []
         self.slots: list[int] = []
@@ -104,6 +120,106 @@ class _StepPrep:
         self.drain_seq = drain_seq  # pool seq before the drain
         self.t0 = t0
         self.submit_t = t0
+        # the drain that made this batch ("prio", "bulk", or None for the
+        # merged drain): a requeue goes back to that lane's retry list
+        self.lane = lane
+
+
+class _BatchCoalescer:
+    """Shape-stable batch sizing (``txflow_tpu/engine/txflow.py:111-247``):
+    dispatch full rungs of the verifier's bucket ladder, hold a partial
+    batch until a linger deadline.
+
+    Only sizes from the ladder (at least ``min_batch``, at most ``cap``)
+    are dispatched: when the backlog covers a rung, exactly the largest
+    covered rung is drained (no padding; the rest waits for the next
+    decision); else the partial backlog lingers until ``linger`` after its
+    first vote or an idle pool (``note_idle``), then flushes at whatever
+    size it reached, padded to its rung by the verifier. Called from the
+    engine thread only; ``full_batches``, ``linger_flushes`` and
+    ``wide_full_batches`` count the decisions."""
+
+    __slots__ = (
+        "targets", "linger", "full_batches", "linger_flushes", "_deadline", "_idle",
+        "_clock", "wide_from", "wide_ok", "wide_full_batches",
+    )
+
+    def __init__(self, buckets, cap: int, min_batch: int, linger: float,
+                 clock=time.monotonic, multiple: int = 1, wide_from: int | None = None):
+        # a mesh pads every dispatch to a multiple of its shard count, so
+        # the targets are rounded to it: a full rung splits evenly
+        m = max(1, int(multiple))
+        targets = sorted({-(-b // m) * m for b in buckets if min_batch <= b <= cap})
+        # no rung fits [min_batch, cap]: dispatch at the cap
+        self.targets = targets or [-(-cap // m) * m]
+        self.linger = linger
+        self.full_batches = 0
+        self.linger_flushes = 0
+        self._deadline: float | None = None
+        self._idle = False
+        self._clock = clock
+        # rungs above wide_from are taken only while wide_ok holds
+        # (EngineConfig.wide_buckets; None: no wide rungs, the gate is inert)
+        self.wide_from = None if wide_from is None else int(wide_from)
+        self.wide_ok = True
+        self.wide_full_batches = 0
+
+    def decide(self, pending: int) -> int:
+        """Votes to dispatch now: a full rung, the whole backlog on a
+        linger or idle flush, or 0 (keep coalescing)."""
+        if pending <= 0:
+            self._deadline = None
+            self._idle = False
+            return 0
+        full = 0
+        for b in self.targets:
+            if pending >= b:
+                if self.wide_from is not None and b > self.wide_from and not self.wide_ok:
+                    break  # wide rungs gated off: stop at the classic cap
+                full = b
+            else:
+                break
+        if full:
+            self._deadline = None
+            self._idle = False
+            self.full_batches += 1
+            if self.wide_from is not None and full > self.wide_from:
+                self.wide_full_batches += 1
+            return full
+        now = self._clock()
+        if self._deadline is None:
+            self._deadline = now + self.linger
+        if now >= self._deadline or self._idle:
+            self._deadline = None
+            self._idle = False
+            self.linger_flushes += 1
+            return pending
+        return 0
+
+    def set_wide(self, ok: bool) -> None:
+        """Gate the wide rungs."""
+        self.wide_ok = bool(ok)
+
+    def note_idle(self) -> None:
+        """The pool wait timed out with votes pending and nothing new
+        arriving: flush at the next decide instead of riding out the
+        linger."""
+        if self._deadline is not None:
+            self._idle = True
+
+    def wait_budget(self, poll: float, idle_flush: float) -> float:
+        """Bound for the engine's pool wait, so that a linger flush fires on
+        time and idleness is seen on the idle_flush scale; 0 once the
+        deadline has passed (the flush is due now)."""
+        budget = poll
+        if self._deadline is not None:
+            rem = self._deadline - self._clock()
+            if rem <= 0:
+                return 0.0
+            budget = min(budget, max(rem, 0.0005))
+            if idle_flush > 0:
+                budget = min(budget, idle_flush)
+        return budget
 
 
 class TxFlow:
@@ -158,12 +274,39 @@ class TxFlow:
         shards = self._verifier_shards()
         if self._drain_cap >= shards:
             self._drain_cap -= self._drain_cap % shards
+        # wide_buckets: the bulk coalescer may reach the ladder's rungs
+        # above max_batch; the classic cap stays its wide_from gate line
+        self._classic_drain_cap = self._drain_cap
+        if self.config.wide_buckets:
+            buckets = self._verifier_buckets()
+            if buckets:
+                self._drain_cap = max(self._drain_cap, max(buckets))
         self.vote_sets: dict[str, TxVoteSet] = {}  # in-flight only
         self._committed = LRUCache(1 << 16)  # recently committed tx hashes
         # ingest-log cursor: each pool entry is visited by step() exactly
         # once (in-batch repeats re-queue on _retry)
         self._drain_cursor = 0
         self._retry: list[tuple[bytes, TxVote]] = []
+        # the priority log's cursor; in the merged drain (lane None) the
+        # keys drained from the priority log are remembered until the main
+        # cursor passes them, so no vote is prepped twice
+        self._prio_drain_cursor = 0
+        self._prio_drained: set[bytes] = set()
+        # the lane-split drain: the priority lane's own retry list (a
+        # priority repeat never waits behind the bulk backlog)
+        self._retry_prio: list[tuple[bytes, TxVote]] = []
+        # built by start(): the bulk coalescer (None without a bucket
+        # ladder or with coalesce off), the priority lane (lane_split),
+        # and the depth controller (adaptive_depth)
+        self._coalescer: _BatchCoalescer | None = None
+        self._prio_lane: _BatchCoalescer | None = None
+        self._depth_ctrl: AdaptiveDepthController | None = None
+        self._lane_prio_batches = 0
+        self._lane_prio_votes = 0
+        # speculative commit: commits routed on the device's maj23 bit,
+        # and the route-tail seconds their early exit saved
+        self._spec_commits = 0
+        self._spec_saved_s = 0.0
         self._mtx = threading.RLock()
         # quorum-before-tx: a certificate can be decided before the tx
         # bytes reach the local mempool; the apply then waits (tx_hash ->
@@ -186,7 +329,8 @@ class TxFlow:
         # verifier
         self._host_pool = None
         self._own_host_pool = False
-        self.warm_s: float | None = None  # start()'s build + warm step
+        self.warm_s: float | None = None  # start()'s build + warm steps
+        self.warm_rungs: list[int] = []  # the rows of each warm step
         # pipeline accounting (loop thread; pipeline_stats reads it):
         # busy is the union of the [submit, collect] windows, active the
         # loop's own prep, wait and route seconds
@@ -209,9 +353,11 @@ class TxFlow:
     # ---- lifecycle: the threaded engine (reference OnStart :80-87) ----
 
     def start(self) -> None:
-        """Build the kernels, run the warm step, attach the host-prep pool,
-        then start the committer (``pipeline_commits``) and the run loop
-        (``txflow_tpu/engine/txflow.py:465``). Raises if any of it fails."""
+        """Build the kernels, run the warm step, build the bulk coalescer,
+        the priority lane and the depth controller as configured, attach
+        the host-prep pool, then start the committer (``pipeline_commits``)
+        and the run loop (``txflow_tpu/engine/txflow.py:136``). Raises if
+        any of it fails."""
         with self._mtx:
             if self._running:
                 return
@@ -219,6 +365,7 @@ class TxFlow:
             self._error = None
             self._commit_q = _queue.SimpleQueue()
         try:
+            self._build_lanes()
             self._warm()
             workers = int(self.config.host_prep_workers or 0)
             if workers > 1 and self._host_pool is None:
@@ -244,19 +391,56 @@ class TxFlow:
         )
         self._thread.start()
 
+    def _build_lanes(self) -> None:
+        """The coalescers and the depth controller, as the JAX ``start()``
+        builds them (``txflow_tpu/engine/txflow.py:172-253``)."""
+        shards = self._verifier_shards()
+        buckets = self._verifier_buckets()
+        if self.config.coalesce and self._coalescer is None and buckets:
+            self._coalescer = _BatchCoalescer(
+                buckets, cap=self._drain_cap, min_batch=self.config.min_batch,
+                linger=self.config.coalesce_linger, multiple=shards,
+                wide_from=(self._classic_drain_cap
+                           if self._drain_cap > self._classic_drain_cap else None),
+            )
+        if self.config.lane_split and self._prio_lane is None:
+            # built without a ladder too (cap-sized targets): the lane is
+            # about preemption, not shapes
+            self._prio_lane = _BatchCoalescer(
+                buckets or (),
+                cap=min(max(1, int(self.config.priority_bucket_cap)), self._drain_cap),
+                min_batch=1, linger=self.config.priority_linger, multiple=shards,
+            )
+        if self.config.adaptive_depth and self._depth_ctrl is None:
+            self._depth_ctrl = AdaptiveDepthController(
+                depth=max(2, int(self.config.pipeline_depth)),
+                min_depth=self.config.pipeline_depth_min,
+                max_depth=self.config.pipeline_depth_max,
+            )
+
     def _warm(self) -> None:
         """The warm step (it replaces the JAX package's shape prewarm,
         ``engine/shapes.py``: nvcc kernels compile once, not per shape):
         build the kernels when the verifier is on CUDA cards, then submit
         and collect one all-padding batch at the drain bucket over
-        ``max_slots`` slots on every card of its mesh."""
+        ``max_slots`` slots on every card of its mesh; with a coalescer or
+        a priority lane, one more at each smaller rung of the ladder they
+        dispatch (full rungs and padded flushes), so that the first step
+        at a rung finds the allocator's blocks of its sizes (on an H100,
+        without them, the first step at rungs 64 and 256 took 1.8-2.2x the
+        submit time of the rest). ``warm_rungs`` lists them."""
         v = self.verifier
         if not isinstance(v, DeviceVoteVerifier):
             return
         t0 = time.perf_counter()
         if v.device.type == "cuda":
             _lib.build_all()
-        v.warm(self._drain_cap, self.config.max_slots)
+        rungs = [self._drain_cap]
+        if self._coalescer is not None or self._prio_lane is not None:
+            rungs += sorted((b for b in set(v.buckets) if b < self._drain_cap), reverse=True)
+        for rows in rungs:
+            v.warm(rows, self.config.max_slots)
+        self.warm_rungs = rungs
         self.warm_s = time.perf_counter() - t0
 
     def _guard(self, fn) -> None:
@@ -305,47 +489,135 @@ class TxFlow:
         else:
             self._run_serial()
 
-    def _pending(self) -> int:
-        """Unvisited ingest (pool seq minus the drain cursor, which over-
-        counts only removed-not-yet-visited entries) plus the retries."""
-        return self.tx_vote_pool.seq() - self._drain_cursor + len(self._retry)
+    def _target_depth(self) -> int:
+        ctrl = self._depth_ctrl
+        if ctrl is not None:
+            return ctrl.depth
+        return max(2, int(self.config.pipeline_depth))
+
+    def _prio_pending(self) -> int:
+        """Priority backlog estimate: priority ingests not yet walked plus
+        the lane's requeues (over-counts only removed entries not yet
+        walked)."""
+        return self.tx_vote_pool.prio_seq() - self._prio_drain_cursor + len(self._retry_prio)
+
+    def _bulk_pending(self) -> int:
+        """Bulk backlog estimate: unvisited ingest of the main log plus the
+        retries, less the priority backlog when the priority lane runs
+        (the main log's seq counts priority ingests too). Both sides
+        over-count dead entries, so the difference stays a safe estimate
+        that corrects itself as the cursors advance."""
+        pending = self.tx_vote_pool.seq() - self._drain_cursor + len(self._retry)
+        if self._prio_lane is not None:
+            pending -= max(self.tx_vote_pool.prio_seq() - self._prio_drain_cursor, 0)
+        return max(pending, 0)
+
+    def _bulk_quantum(self) -> int:
+        """Bulk drain cap a step while the priority lane runs without a
+        bucket ladder: one bulk verify is the priority lane's preemption
+        gap, so once priority traffic exists bulk drains in shard-rounded
+        quanta of 64; a run that never saw a priority ingest keeps the
+        min_batch drain."""
+        if self.tx_vote_pool.prio_seq() == 0:
+            return max(int(self.config.min_batch), 64)
+        m = self._verifier_shards()
+        return -(-64 // m) * m
+
+    def _lane_wait(self, seq_before: int) -> None:
+        """Wait on the pool's ingest counter for at most what the lanes'
+        deadlines allow; a wait that saw nothing new marks both lanes
+        idle."""
+        co, pl = self._coalescer, self._prio_lane
+        budget = self.config.poll_interval
+        if co is not None:
+            budget = co.wait_budget(budget, self.config.idle_flush)
+        if pl is not None:
+            budget = pl.wait_budget(budget, self.config.idle_flush)
+        got = self.tx_vote_pool.wait_for_new(seq_before, timeout=budget)
+        if got == seq_before:
+            if co is not None:
+                co.note_idle()
+            if pl is not None:
+                pl.note_idle()
 
     def _run_serial(self) -> None:
-        """``txflow_tpu/engine/txflow.py:730``: form a batch, step, and on
-        an empty round wait on the pool's ingest counter (sampled before
-        the step, so a vote that lands mid-step wakes the loop at once)."""
+        """``txflow_tpu/engine/txflow.py:401``: a dispatchable priority
+        batch first, then the bulk lane (a coalescer's rung or flush, else
+        a formed batch); on an empty round wait on the pool's ingest
+        counter (sampled before the steps, so a vote that lands mid-step
+        wakes the loop at once)."""
+        co, pl = self._coalescer, self._prio_lane
+        lane_bulk = "bulk" if pl is not None else None
         while True:
             with self._mtx:
                 if not self._running:
                     return
             seq_before = self.tx_vote_pool.seq()
-            self._form_batch()
-            processed = self.step()
+            processed = 0
+            if pl is not None:
+                plimit = pl.decide(self._prio_pending())
+                if plimit > 0:
+                    processed += self.step(plimit, lane="prio")
+            if co is not None:
+                limit = co.decide(self._bulk_pending())
+                if limit > 0:
+                    processed += self.step(limit, lane=lane_bulk)
+            elif pl is not None:
+                # the forming hold ends by the priority lane's deadline, and
+                # bulk drains in quanta so priority preempts soon
+                self._form_batch(pl.wait_budget(self.config.batch_wait, self.config.idle_flush))
+                processed += self.step(self._bulk_quantum(), lane=lane_bulk)
+            else:
+                self._form_batch()
+                processed += self.step()
             if self._committer is None and self._unapplied:
                 self._apply_unapplied()
-            if processed == 0 and not self._retry:
-                self.tx_vote_pool.wait_for_new(seq_before, timeout=self.config.poll_interval)
+            if processed == 0 and (co is not None or not self._retry):
+                self._lane_wait(seq_before)
 
     def _run_pipelined(self) -> None:
-        """``txflow_tpu/engine/txflow.py:794``: prep and submit until
-        ``pipeline_depth`` tickets are in flight (with a ticket pending, a
-        follow-up batch goes only once ``min_batch`` votes wait), then
-        collect the oldest and route it, in submission order. On stop, or
-        an error, every ticket in flight is still collected and routed."""
+        """``txflow_tpu/engine/txflow.py:465``: prep and submit until the
+        target depth of tickets is in flight -- a dispatchable priority
+        batch before any bulk one; the bulk lane by its coalescer, or
+        without one a formed batch (with a ticket pending, a follow-up
+        batch goes only once ``min_batch`` votes wait) -- then collect the
+        oldest and route it, in submission order, and feed the depth
+        controller. On stop, or an error, every ticket in flight is still
+        collected and routed."""
         inflight: deque = deque()
+        co, pl = self._coalescer, self._prio_lane
+        lane_bulk = "bulk" if pl is not None else None
+        ctrl = self._depth_ctrl
         try:
             while True:
                 with self._mtx:
                     if not self._running:
                         return
-                depth = max(2, int(self.config.pipeline_depth))
+                depth = self._target_depth()
                 seq_before = self.tx_vote_pool.seq()
                 while len(inflight) < depth:
-                    if not inflight:
-                        self._form_batch()
-                    elif self._pending() < max(1, self.config.min_batch):
-                        break
-                    prep = self._prep_batch()
+                    if pl is not None:
+                        plimit = pl.decide(self._prio_pending())
+                        if plimit > 0:
+                            prep = self._prep_batch(plimit, lane="prio")
+                            if prep is not None:
+                                if prep.votes:
+                                    inflight.append((prep, self._submit_prep(prep)))
+                                continue
+                            # the estimate raced a purge: try the bulk lane
+                    if co is not None:
+                        limit = co.decide(self._bulk_pending())
+                        if limit <= 0:
+                            break
+                        prep = self._prep_batch(limit, lane=lane_bulk)
+                    else:
+                        if not inflight:
+                            self._form_batch(None if pl is None else pl.wait_budget(
+                                self.config.batch_wait, self.config.idle_flush))
+                        elif self._bulk_pending() < max(1, self.config.min_batch):
+                            break
+                        prep = self._prep_batch(None if pl is None else self._bulk_quantum(),
+                                                lane=lane_bulk)
                     if prep is None:
                         break
                     if not prep.votes:
@@ -354,15 +626,15 @@ class TxFlow:
                 if not inflight:
                     if self._committer is None and self._unapplied:
                         self._apply_unapplied()
-                    if not self._retry:
-                        self.tx_vote_pool.wait_for_new(
-                            seq_before, timeout=self.config.poll_interval
-                        )
+                    if co is not None or pl is not None or not self._retry:
+                        self._lane_wait(seq_before)
                     continue
                 prep, ticket = inflight.popleft()
                 _decided, _requeued, all_deferred = self._route_result(
                     prep, self._collect(prep, ticket)
                 )
+                if ctrl is not None:
+                    ctrl.observe(self._pipe_busy_s, self._pipe_active_s, self._pipe_steps)
                 if self._committer is None and self._unapplied:
                     self._apply_unapplied()
                 if all_deferred:
@@ -380,18 +652,23 @@ class TxFlow:
             if err is not None:
                 raise err
 
-    def _form_batch(self) -> None:
-        """Hold up to batch_wait for min_batch pending votes; with votes
-        pending and none arriving for idle_flush, go at once
-        (``txflow_tpu/engine/txflow.py:954``)."""
+    def _form_batch(self, budget: float | None = None) -> None:
+        """Hold up to batch_wait (or ``budget``, if shorter: the priority
+        lane's deadline) for min_batch pending votes; with votes pending
+        and none arriving for idle_flush, go at once
+        (``txflow_tpu/engine/txflow.py:625``)."""
         min_batch = self.config.min_batch
         if min_batch <= 1:
             return
-        deadline = time.monotonic() + self.config.batch_wait
+        wait = self.config.batch_wait
+        if budget is not None:
+            wait = min(wait, max(budget, 0.0))
+        deadline = time.monotonic() + wait
         idle_flush = self.config.idle_flush
         while True:
             seq_now = self.tx_vote_pool.seq()
-            pending = self._pending()
+            # unvisited ingest of the main log (priority ingests included)
+            pending = seq_now - self._drain_cursor + len(self._retry)
             remaining = deadline - time.monotonic()
             if pending >= min_batch or remaining <= 0:
                 return
@@ -404,15 +681,17 @@ class TxFlow:
 
     # ---- batched aggregation step ----
 
-    def step(self, limit: int | None = None) -> int:
+    def step(self, limit: int | None = None, lane: str | None = None) -> int:
         """One serial verify+tally+commit round (prep -> submit -> collect
         -> route); returns votes processed this step: votes routed to a
         decision plus votes dropped at drain time. Votes the verifier
-        deferred (in-batch repeats) re-enter via _retry and are counted by
-        the step that decides them; ``last_step_stats`` reconciles
-        decided + requeued with the verified batch. ``limit`` caps the
-        batch (retries included) below the drain cap."""
-        prep = self._prep_batch(limit)
+        deferred (in-batch repeats) re-enter via their lane's retry list
+        and are counted by the step that decides them; ``last_step_stats``
+        reconciles decided + requeued with the verified batch. ``limit``
+        caps the batch (retries included) below the drain cap; ``lane``
+        picks the drain ("prio", "bulk", or None for the merged drain, see
+        ``_prep_batch``)."""
+        prep = self._prep_batch(limit, lane)
         if prep is None:
             return 0
         if not prep.votes:
@@ -453,26 +732,63 @@ class TxFlow:
                     object.__setattr__(votes[i], "_sb_cache", (self.chain_id, rows[j]))
         return out
 
-    def _prep_batch(self, limit: int | None = None) -> "_StepPrep | None":
-        """Drain the pool, dedup against committed/held votes, assign tx
-        slots, gather prior stake, and build sign bytes (on the host-prep
-        pool from ``_POOL_MIN_VOTES`` votes). Returns None when nothing was
-        drained; a prep with empty ``votes`` when everything drained was
-        dropped."""
+    def _drain_lane(self, target: int, lane: str | None) -> list[tuple[bytes, TxVote]]:
+        """The (key, vote) pairs of one drain, retries first, under _mtx
+        (``txflow_tpu/engine/txflow.py:1111-1160``): "prio" walks only the
+        pool's priority log and the lane's retries, "bulk" the main log
+        without the ingest-time priority entries -- together an exact
+        partition -- and None the merged drain, the priority log first and
+        then the main log, skipping keys the priority walk already took."""
+        pool = self.tx_vote_pool
+        if lane == "prio":
+            raw, self._prio_drain_cursor = pool.priority_entries_from(
+                self._prio_drain_cursor, limit=max(target - len(self._retry_prio), 0))
+            batch = self._retry_prio + [(k, v) for k, v, _h in raw]
+            self._retry_prio = []
+            return batch
+        if lane == "bulk":
+            raw, self._drain_cursor = pool.bulk_entries_from(
+                self._drain_cursor, limit=max(target - len(self._retry), 0))
+            batch = self._retry + [(k, v) for k, v, _h in raw]
+            self._retry = []
+            return batch
+        praw, self._prio_drain_cursor = pool.priority_entries_from(
+            self._prio_drain_cursor, limit=max(target - len(self._retry), 0))
+        drained = self._prio_drained
+        drained.update(k for k, _v, _h in praw)
+        raw, self._drain_cursor = pool.entries_from(
+            self._drain_cursor, limit=max(target - len(self._retry) - len(praw), 0))
+        fresh = []
+        for k, v, _h in raw:
+            if k in drained:
+                drained.discard(k)  # the main log reached it: done
+                continue
+            fresh.append((k, v))
+        if len(drained) > 8192:
+            # keys removed before the main cursor reached them would pile
+            # up: keep only those the pool still holds
+            self._prio_drained = {k for k in drained if pool.has(k)}
+        batch = self._retry + [(k, v) for k, v, _h in praw] + fresh
+        self._retry = []
+        return batch
+
+    def _prep_batch(self, limit: int | None = None,
+                    lane: str | None = None) -> "_StepPrep | None":
+        """Drain the pool by ``lane`` (``_drain_lane``), dedup against
+        committed/held votes, assign tx slots, gather prior stake, and
+        build sign bytes (on the host-prep pool from ``_POOL_MIN_VOTES``
+        votes). Returns None when nothing was drained; a prep with empty
+        ``votes`` when everything drained was dropped."""
         t0 = time.perf_counter()
         target = self._drain_cap if limit is None else min(limit, self._drain_cap)
         drain_seq = self.tx_vote_pool.seq()
         with self._mtx:
             lk = time.perf_counter()
             self._pipe_lock_wait_s += lk - t0
-            raw, self._drain_cursor = self.tx_vote_pool.entries_from(
-                self._drain_cursor, limit=max(target - len(self._retry), 0)
-            )
-            batch = self._retry + [(k, v) for k, v, _h in raw]
-            self._retry = []
+            batch = self._drain_lane(target, lane)
             if not batch:
                 return None
-            prep = _StepPrep(drain_seq, t0)
+            prep = _StepPrep(drain_seq, t0, lane)
             keys, votes, slots = prep.keys, prep.votes, prep.slots
             slot_of: dict[str, int] = {}
             drop_now: list[bytes] = []
@@ -495,8 +811,9 @@ class TxFlow:
                     and len(slot_of) >= self.config.max_slots
                 ):
                     # leave the tail for the next step (the cursor has
-                    # passed it, so it re-queues explicitly)
-                    self._retry.extend(batch[bi:])
+                    # passed it, so it re-queues explicitly), in the lane's
+                    # own retry list
+                    (self._retry_prio if lane == "prio" else self._retry).extend(batch[bi:])
                     break
                 slot = slot_of.setdefault(vote.tx_hash, len(slot_of))
                 keys.append(key)
@@ -557,6 +874,9 @@ class TxFlow:
         (host prep, H2D, launch; no readback)."""
         t0 = time.perf_counter()
         prep.submit_t = t0
+        if prep.lane == "prio":
+            self._lane_prio_batches += 1
+            self._lane_prio_votes += len(prep.votes)
         ticket = prep.verifier.submit(
             prep.msgs, prep.sigs, prep.val_idx,
             np.array(prep.slots, np.int32), prep.n_slots,
@@ -589,21 +909,42 @@ class TxFlow:
         certificates equal the scalar path's. A decided commit goes to the
         committer thread when there is one, else its effects run here
         after the lock. Returns (decided, requeued, all_deferred);
-        decided + requeued == len(prep.votes)."""
+        decided + requeued == len(prep.votes).
+
+        ``speculative_commit`` (``txflow_tpu/engine/txflow.py:1432-1549``):
+        the votes of slots whose maj23 bit (prior stake plus this batch's
+        tally over the quorum, in the readback) is set route first, so
+        their commits leave before the rest of the batch routes. The bit
+        only orders: it may be a batch stale, and the host TxVoteSet
+        decides every quorum. All votes of a tx share its slot, so only
+        the order across txs moves; certificates stay byte-identical."""
         t0 = time.perf_counter()
         keys, votes = prep.keys, prep.votes
         requeued = 0
         inline_commits: list[tuple[TxVoteSet, list[TxVote], bytes | None]] = []
         purge_votes: list[TxVote] = []  # quorum votes, one pool purge a step
+        spec_t: list[float] = []  # decision times of speculative commits
         with self._mtx:
             bad_keys: list[bytes] = []
             valid_l = result.valid.tolist()
             dropped_l = result.dropped.tolist()
-            for i, vote in enumerate(votes):
+            # a requeue goes back to the lane that drained it
+            retry_lane = self._retry_prio if prep.lane == "prio" else self._retry
+            n = len(votes)
+            order = range(n)
+            spec_n = 0
+            if self.config.speculative_commit:
+                maj_l = result.maj23.tolist()
+                first = [i for i in range(n) if maj_l[prep.slots[i]]]
+                if first and len(first) < n:
+                    order = first + [i for i in range(n) if not maj_l[prep.slots[i]]]
+                    spec_n = len(first)
+            for pos, i in enumerate(order):
+                vote = votes[i]
                 if dropped_l[i]:
                     # in-batch (slot, validator) repeat: the cursor has
                     # passed this entry, so re-queue it for the next step
-                    self._retry.append((keys[i], vote))
+                    retry_lane.append((keys[i], vote))
                     requeued += 1
                     continue
                 if not valid_l[i]:
@@ -621,6 +962,8 @@ class TxFlow:
                 added, _err = vs.add_verified_vote(vote)
                 if added:
                     if vs.has_two_thirds_majority():
+                        if pos < spec_n:
+                            spec_t.append(time.perf_counter())
                         # decision under _mtx; store/ABCI effects after it
                         if self._committer is not None:
                             self._enqueue_commit(vs)
@@ -636,6 +979,12 @@ class TxFlow:
             )
         if purge_votes:
             self.tx_vote_pool.update(self.height, purge_votes)
+        t1 = time.perf_counter()
+        if spec_t:
+            # the saved tail of each speculative commit: route end minus
+            # its decision time
+            self._spec_commits += len(spec_t)
+            self._spec_saved_s += sum(t1 - t for t in spec_t)
         with self._mtx:  # the batch is routed, its effects done
             self._pipe_in_flight -= 1
             self._pipe_steps += 1
@@ -653,12 +1002,14 @@ class TxFlow:
         union of [submit, collect] windows) over the loop's active seconds
         (prep, readback wait, route); the host-prep split (sign-bytes
         stage, and the part of it spent waiting on pool shards); the
-        pool's and the readback ring's counters."""
+        pool's and the readback ring's counters; the coalescer's, the
+        lanes', the speculative route's and the depth controller's."""
         active = self._pipe_active_s
         busy = min(self._pipe_busy_s, active)
         pool = self._host_pool
+        co, pl, ctrl = self._coalescer, self._prio_lane, self._depth_ctrl
         stats = {
-            "depth": int(self.config.pipeline_depth),
+            "depth": ctrl.depth if ctrl is not None else int(self.config.pipeline_depth),
             "steps": self._pipe_steps,
             "in_flight": self._pipe_in_flight,
             "overlap_ratio": busy / active if active > 0 else None,
@@ -676,7 +1027,33 @@ class TxFlow:
             "host_prep": pool.stats() if pool is not None else None,
             "mesh_devices": self._verifier_shards(),
             "warm_s": self.warm_s,
+            "coalesce": {
+                "enabled": co is not None,
+                "targets": list(co.targets) if co is not None else None,
+                "full_batches": co.full_batches if co is not None else 0,
+                "linger_flushes": co.linger_flushes if co is not None else 0,
+                "wide_from": co.wide_from if co is not None else None,
+                "wide_ok": co.wide_ok if co is not None else None,
+                "wide_full_batches": co.wide_full_batches if co is not None else 0,
+            },
+            "lanes": {
+                "enabled": pl is not None,
+                "prio_targets": list(pl.targets) if pl is not None else None,
+                "prio_batches": self._lane_prio_batches,
+                "prio_votes": self._lane_prio_votes,
+                "prio_full_batches": pl.full_batches if pl is not None else 0,
+                "prio_linger_flushes": pl.linger_flushes if pl is not None else 0,
+                "prio_linger_ms": round(pl.linger * 1e3, 4) if pl is not None else None,
+                "bulk_linger_ms": round(co.linger * 1e3, 4) if co is not None else None,
+            },
+            "spec": {
+                "enabled": bool(self.config.speculative_commit),
+                "commits": self._spec_commits,
+                "saved_s": self._spec_saved_s,
+            },
         }
+        if ctrl is not None:
+            stats["adaptive_depth"] = ctrl.stats()
         ring = getattr(self.verifier, "staging_stats", None)
         if ring is not None and ring() is not None:
             stats["staging"] = ring()
@@ -979,11 +1356,13 @@ class TxFlow:
             else:
                 if base.mesh is not None:
                     verifier = DeviceVoteVerifier(val_set, mesh=base.mesh, fe_radix=base.fe_radix,
-                                                  staging_ring=base.staging_depth)
+                                                  staging_ring=base.staging_depth,
+                                                  buckets=base.buckets)
                 else:
                     verifier = DeviceVoteVerifier(val_set, device=base.device,
                                                   fe_radix=base.fe_radix,
-                                                  staging_ring=base.staging_depth)
+                                                  staging_ring=base.staging_depth,
+                                                  buckets=base.buckets)
                 # the host-prep pool serves the successor
                 verifier._host_pool, base._host_pool = base._host_pool, None
             self.height = height
@@ -1015,6 +1394,11 @@ class TxFlow:
         """Mesh shard count of the verifier; 1 for a single device or the
         host verifier."""
         return max(1, int(getattr(self.verifier, "_n_shards", 1)))
+
+    def _verifier_buckets(self):
+        """The verifier's bucket ladder (``DeviceVoteVerifier.buckets``; a
+        test may attach one to a scalar verifier), or None."""
+        return getattr(self.verifier, "buckets", None) or None
 
     def is_tx_committed(self, tx_hash: str) -> bool:
         with self._mtx:

@@ -6,13 +6,17 @@
 - ``TxVotePool``: pending TxVotes with signature-keyed dedup and caps.
 """
 
-from .mempool import ErrMempoolIsFull, ErrTxInCache, ErrTxTooLarge, Mempool, TxInfo
+from .mempool import (
+    LANE_BULK, LANE_PRIORITY, ErrMempoolIsFull, ErrTxInCache, ErrTxTooLarge, Mempool, TxInfo,
+)
 from .txvotepool import TxVotePool, UNKNOWN_PEER_ID
 
 __all__ = [
     "ErrMempoolIsFull",
     "ErrTxInCache",
     "ErrTxTooLarge",
+    "LANE_BULK",
+    "LANE_PRIORITY",
     "Mempool",
     "TxInfo",
     "TxVotePool",

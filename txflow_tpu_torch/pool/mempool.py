@@ -6,7 +6,10 @@ Forked-mempool behaviors kept for the fast path:
 - ``get_tx(tx_key)`` lookup by sha256 -- the fork's one addition
   (clist_mempool.go:171-177), used by TxFlow on quorum;
 - ``update`` on commit removes txs; ``push_committed_many`` stages
-  fast-committed txs in the commitpool.
+  fast-committed txs in the commitpool;
+- admission lanes (``txflow_tpu/pool/mempool.py:28-33``): the ``lane_of``
+  classifier hook, per-lane counts, and reaps that serve the priority
+  lane first.
 """
 
 from __future__ import annotations
@@ -17,6 +20,12 @@ from ..crypto.hash import sha256
 from ..utils.cache import LRUCache
 from ..utils.config import MempoolConfig
 from .base import IngestLogPool
+
+# mempool lanes: priority txs keep committing under overload while bulk
+# traffic sheds at the edges. The constants live here so that admission
+# imports them without the pool importing admission.
+LANE_PRIORITY = 0
+LANE_BULK = 1
 
 
 class ErrTxInCache(Exception):
@@ -57,6 +66,7 @@ class _MempoolTx:
     gas_wanted: int
     tx: bytes
     senders: set[int] = field(default_factory=set)
+    lane: int = LANE_BULK  # admission lane (classifier verdict at insert)
 
 
 class Mempool(IngestLogPool):
@@ -68,6 +78,10 @@ class Mempool(IngestLogPool):
         self._txs: dict[bytes, _MempoolTx] = self._items  # tx_key -> entry
         self._txs_bytes = 0
         self.cache = LRUCache(config.cache_size)
+        # admission lanes: lane_of is the classifier hook (tx -> lane; None
+        # = everything bulk)
+        self.lane_of = None
+        self._lane_counts = [0, 0]  # live entries per lane (PRIORITY, BULK)
 
     def size(self) -> int:
         with self._mtx:
@@ -128,7 +142,16 @@ class Mempool(IngestLogPool):
                 self.cache.remove(key)
                 raise ValueError(f"rejected by app CheckTx (code {res.code}): {res.log}")
         gas = res.gas_wanted if res is not None else 0
-        self._txs[key] = _MempoolTx(self.height, gas, tx, {tx_info.sender_id})
+        lane = LANE_BULK
+        if self.lane_of is not None:
+            try:
+                lane = self.lane_of(tx)
+            except Exception:
+                lane = LANE_BULK  # a hostile tx must not error the insert
+            if lane != LANE_PRIORITY:
+                lane = LANE_BULK
+        self._txs[key] = _MempoolTx(self.height, gas, tx, {tx_info.sender_id}, lane)
+        self._lane_counts[lane] += 1
         self._log_append(key, notify)
         self._txs_bytes += len(tx)
 
@@ -139,6 +162,36 @@ class Mempool(IngestLogPool):
         a key can only ever map to one byte string."""
         entry = self._txs.get(tx_key)
         return entry.tx if entry is not None else None
+
+    def lane_of_key(self, tx_key: bytes) -> int:
+        """Admission lane of a pooled tx (LANE_BULK when unknown or gone).
+        Lock-free like get_tx: the verdict is immutable per entry. Votes
+        inherit their tx's lane through this (``TxVotePool.lane_of_vote``)."""
+        entry = self._txs.get(tx_key)
+        return entry.lane if entry is not None else LANE_BULK
+
+    def lane_size(self, lane: int) -> int:
+        """Live entries in one admission lane."""
+        with self._mtx:
+            return self._lane_counts[lane]
+
+    # -- reap (reference :306-355) --
+
+    def _reap_order(self):
+        """Iteration order for reaps (call under _mtx): priority entries
+        first, insertion order within each lane."""
+        if self._lane_counts[LANE_PRIORITY] == 0:
+            return self._txs.values()
+        entries = list(self._txs.values())
+        return [e for e in entries if e.lane == LANE_PRIORITY] + [
+            e for e in entries if e.lane != LANE_PRIORITY
+        ]
+
+    def reap_max_txs(self, n: int) -> list[bytes]:
+        with self._mtx:
+            if n < 0:
+                n = len(self._txs)
+            return [e.tx for e in list(self._reap_order())[:n]]
 
     # -- update on commit (reference :358-422) --
 
@@ -170,6 +223,7 @@ class Mempool(IngestLogPool):
             entry = self._txs.pop(key, None)
             if entry is not None:
                 self._txs_bytes -= len(entry.tx)
+                self._lane_counts[entry.lane] -= 1
         self._log_compact()
 
     def push_committed_many(self, txs: list[bytes], keys: list[bytes]) -> None:
@@ -185,5 +239,6 @@ class Mempool(IngestLogPool):
                 if not self.cache.push(key):
                     continue
                 self._txs[key] = _MempoolTx(self.height, 0, tx, {0})
+                self._lane_counts[LANE_BULK] += 1
                 self._log_append(key)
                 self._txs_bytes += len(tx)

@@ -16,6 +16,13 @@ Semantics kept from the reference:
 The engine consumes through ``entries_from`` (a stable-cursor walk that
 does not remove: removal happens on commit/purge, like the reference's
 checkMaj23Routine walking the CList without popping).
+
+Lanes (``txflow_tpu/pool/txvotepool.py:65-103,229-258,490-546``): a vote
+takes its tx's admission lane through the ``lane_of_vote`` hook, read once
+at ingest and frozen on the entry. Priority votes also enter a priority
+ingest log, so ``priority_entries_from`` and ``bulk_entries_from`` (the
+main log without them) partition the pool exactly; a priority vote that
+meets a full pool evicts the oldest bulk vote.
 """
 
 from __future__ import annotations
@@ -26,8 +33,8 @@ from dataclasses import dataclass, field
 from ..types import TxVote, encode_tx_vote
 from ..utils.cache import LRUCache
 from ..utils.config import MempoolConfig
-from .base import IngestLogPool
-from .mempool import ErrMempoolIsFull, ErrTxInCache, ErrTxTooLarge, TxInfo
+from .base import COMPACT_THRESHOLD, IngestLogPool
+from .mempool import LANE_PRIORITY, ErrMempoolIsFull, ErrTxInCache, ErrTxTooLarge, TxInfo
 
 UNKNOWN_PEER_ID = 0
 
@@ -47,6 +54,10 @@ class _PoolVote:
     vote: TxVote
     senders: set[int] = field(default_factory=set)
     size: int = 0  # encoded wire size, cached so removals never re-encode
+    # ingest-time lane (LANE_PRIORITY or -1), frozen so that the priority
+    # log and bulk_entries_from stay an exact partition of the main log
+    # even if the hook's answer drifts later (a tx leaving the mempool)
+    lane: int = -1
 
 
 class TxVotePool(IngestLogPool):
@@ -57,6 +68,12 @@ class TxVotePool(IngestLogPool):
         self._votes: dict[bytes, _PoolVote] = self._items  # vote_key -> entry
         self._votes_bytes = 0
         self.cache = LRUCache(config.cache_size)
+        # vote lanes: lane_of_vote is the hook (vote -> lane; a node wires
+        # the mempool's lane_of_key over the vote's tx_key); a hook fault
+        # demotes to bulk. The priority log has the main log's design.
+        self.lane_of_vote = None
+        self._prio_log: list[bytes] = []
+        self._prio_log_base = 0  # absolute position of _prio_log[0]
         self._txs_available = threading.Event()
         self._notified_txs_available = False
         self._notify_available = False
@@ -64,6 +81,10 @@ class TxVotePool(IngestLogPool):
     def size(self) -> int:
         with self._mtx:
             return len(self._votes)
+
+    def has(self, key: bytes) -> bool:
+        with self._mtx:
+            return key in self._votes
 
     def txs_available(self) -> threading.Event:
         self._notify_available = True
@@ -77,6 +98,31 @@ class TxVotePool(IngestLogPool):
         if self._notify_available and not self._notified_txs_available:
             self._notified_txs_available = True
             self._txs_available.set()
+
+    def _lane_quiet(self, vote: TxVote) -> int:
+        """lane_of_vote with a hook fault demoted to bulk (any error, or no
+        hook, is -1)."""
+        if self.lane_of_vote is None:
+            return -1
+        try:
+            return self.lane_of_vote(vote)
+        except Exception:
+            return -1
+
+    def _evict_bulk_locked(self) -> bool:
+        """Evict the oldest bulk vote to make room for a priority vote
+        (under _mtx, pool full): a bounced priority vote is a quorum
+        signature lost. The evicted vote leaves the dedup cache too, so a
+        later delivery can bring it back. The hook is asked again here, as
+        in the JAX package."""
+        for k, e in self._votes.items():
+            if self._lane_quiet(e.vote) == LANE_PRIORITY:
+                continue
+            self._votes.pop(k)
+            self._votes_bytes -= e.size
+            self.cache.remove(k)
+            return True
+        return False
 
     # -- ingest (reference CheckTx/CheckTxWithInfo :180-261) --
 
@@ -107,6 +153,13 @@ class TxVotePool(IngestLogPool):
 
     def _ingest_locked(self, vote: TxVote, tx_info: TxInfo, notify: bool = True) -> None:
         vote_size = len(encode_tx_vote(vote))
+        lane = self._lane_quiet(vote)
+        while (
+            len(self._votes) >= self.config.size
+            or vote_size + self._votes_bytes > self.config.max_txs_bytes
+        ):
+            if lane != LANE_PRIORITY or not self._evict_bulk_locked():
+                break
         if (
             len(self._votes) >= self.config.size
             or vote_size + self._votes_bytes > self.config.max_txs_bytes
@@ -124,8 +177,10 @@ class TxVotePool(IngestLogPool):
             if entry is not None:
                 entry.senders.add(tx_info.sender_id)
             raise ErrTxInCache()
-        self._votes[key] = _PoolVote(self.height, vote, {tx_info.sender_id}, vote_size)
+        self._votes[key] = _PoolVote(self.height, vote, {tx_info.sender_id}, vote_size, lane)
         self._log_append(key, notify)
+        if lane == LANE_PRIORITY:
+            self._prio_log.append(key)
         self._votes_bytes += vote_size
 
     # -- consumption --
@@ -136,6 +191,53 @@ class TxVotePool(IngestLogPool):
         raw, pos = self._entries_from(cursor, limit)
         return [(k, e.vote, e.height) for k, e in raw], pos
 
+    def prio_seq(self) -> int:
+        """Monotonic priority-ingest counter (seq()'s twin for the priority
+        log): prio_seq minus a cursor over-counts only removed entries not
+        yet walked."""
+        with self._mtx:
+            return self._prio_log_base + len(self._prio_log)
+
+    def bulk_entries_from(self, cursor: int, limit: int = 256):
+        """entries_from over bulk votes only: the main-log walk, skipping
+        entries whose ingest-time lane was priority (the priority log
+        delivers those). The cursor still advances over skipped and dead
+        entries."""
+        out = []
+        with self._mtx:
+            pos = max(cursor, self._log_base)
+            while pos - self._log_base < len(self._log) and len(out) < limit:
+                key = self._log[pos - self._log_base]
+                e = self._votes.get(key)
+                if e is not None and e.lane != LANE_PRIORITY:
+                    out.append((key, e.vote, e.height))
+                pos += 1
+        return out, pos
+
+    def priority_entries_from(self, cursor: int, limit: int = 256):
+        """entries_from over priority votes only, walking the priority
+        ingest log: O(priority backlog), however deep the bulk backlog."""
+        out = []
+        with self._mtx:
+            pos = max(cursor, self._prio_log_base)
+            while pos - self._prio_log_base < len(self._prio_log) and len(out) < limit:
+                key = self._prio_log[pos - self._prio_log_base]
+                e = self._votes.get(key)
+                if e is not None:
+                    out.append((key, e.vote, e.height))
+                pos += 1
+        return out, pos
+
+    def _prio_compact(self) -> None:
+        """_log_compact's twin for the priority log (call under _mtx)."""
+        log = self._prio_log
+        n = 0
+        while n < len(log) and log[n] not in self._votes:
+            n += 1
+        if n >= COMPACT_THRESHOLD:
+            del log[:n]
+            self._prio_log_base += n
+
     def remove(self, keys: list[bytes]) -> None:
         """Remove votes by key (votes that can never be added)."""
         with self._mtx:
@@ -144,6 +246,7 @@ class TxVotePool(IngestLogPool):
                 if entry is not None:
                     self._votes_bytes -= entry.size
             self._log_compact()
+            self._prio_compact()
 
     # -- update on commit (reference Update :329-359) --
 
@@ -159,5 +262,6 @@ class TxVotePool(IngestLogPool):
                 if entry is not None:
                     self._votes_bytes -= entry.size
             self._log_compact()
+            self._prio_compact()
             if self._votes:
                 self._notify_txs_available()

@@ -2,8 +2,9 @@
 
 Defaults mirror tendermint v0.31.2's mempool (txvotepool/txvotepool.go:
 198-208 reads config.Mempool) and the JAX package's EngineConfig
-(``txflow_tpu/utils/config.py:90-195``: the fields the threaded engine's
-loop, committer and host-prep pool read, with the JAX defaults).
+(``txflow_tpu/utils/config.py:90-236``: the fields the threaded engine's
+loop, lanes, coalescer, committer and host-prep pool read, with the JAX
+defaults).
 """
 
 from __future__ import annotations
@@ -61,6 +62,42 @@ class EngineConfig:
     # verify calls in flight (submit/collect split, collected and routed
     # in submission order); <= 1 runs the serial loop
     pipeline_depth: int = 2
+    # adaptive pipeline depth (engine/adaptive.py): grow or shrink the
+    # tickets in flight between pipeline_depth_min and pipeline_depth_max
+    # from the live overlap of device-busy and loop-active seconds;
+    # pipeline_depth stays the starting point. Off by default: the
+    # controller needs windows of steps to say anything
+    adaptive_depth: bool = False
+    pipeline_depth_min: int = 2
+    pipeline_depth_max: int = 8
+    # shape-stable coalescing (engine/txflow.py _BatchCoalescer): with a
+    # verifier that has a bucket ladder, dispatch only full-bucket batches
+    # and hold a partial one until coalesce_linger after its first vote
+    # (or the pool goes idle), then flush what coalesced, padded to its
+    # bucket. A verifier without buckets keeps min_batch/batch_wait
+    coalesce: bool = True
+    coalesce_linger: float = 0.004
+    # let the bulk coalescer target ladder rungs above max_batch (the
+    # verifier's ladder runs to 65536); off by default: the classic cap
+    wide_buckets: bool = False
+    # deadline-aware lanes: drain the pool's priority log in small
+    # short-linger batches ahead of the bulk backlog (a second coalescer,
+    # min_batch 1), the bulk lane keeping coalesce_linger. With no lane
+    # hook on the pool the priority log stays empty and the lane costs
+    # one decide(0) a fill pass
+    lane_split: bool = True
+    # how long a partial priority batch may coalesce before it flushes
+    priority_linger: float = 0.001
+    # the largest priority dispatch: ladder rungs at or under this
+    # (rounded up to the mesh's shard multiple) are the lane's targets;
+    # with no ladder the lane dispatches at this cap
+    priority_bucket_cap: int = 512
+    # speculative commit: at collect, route first the votes whose slot's
+    # device maj23 bit is set, so their commits leave for the committer
+    # before the rest of the batch routes. The host TxVoteSet still decides
+    # every quorum: certificates are unchanged, only the commit order
+    # across txs of one batch may differ. Off by default
+    speculative_commit: bool = False
     # commit effects (TxStore, ABCI apply, pool purge) on a committer
     # thread; False commits inline inside routing
     pipeline_commits: bool = True

@@ -297,7 +297,8 @@ class DeviceVoteVerifier:
     """
 
     def __init__(self, val_set: ValidatorSet, device=None, mesh: Mesh | None = None,
-                 fe_radix: int | None = None, staging_ring: int = 2):
+                 fe_radix: int | None = None, staging_ring: int = 2,
+                 buckets=DEFAULT_BUCKETS):
         if mesh is not None:
             if device is not None:
                 raise ValueError("pass a device or a mesh, not both")
@@ -308,8 +309,11 @@ class DeviceVoteVerifier:
         self.device = resolve_device(device) if mesh is None else mesh.devices[0]
         self._step = (None if mesh is None
                       else sharded_compact_step_packed(mesh, fe_radix=self.fe_radix))
-        # the engine must not drain batches beyond the largest bucket
-        self.max_batch = max(DEFAULT_BUCKETS)
+        # the batch-size ladder every dispatch pads to (its rungs are the
+        # engine's coalescer targets, ``txflow_tpu/verifier.py:683-699``);
+        # the engine drains no batch beyond the largest rung
+        self.buckets = tuple(buckets)
+        self.max_batch = max(self.buckets)
         self.capacity = _next_pow2(max(val_set.size(), 4))
         self._stage = self._build_stage(val_set)
         # readback ring (parallel/staging.py), made at the first submit;
@@ -412,7 +416,7 @@ class DeviceVoteVerifier:
         shapes and the readback ring's pinned buffers are paid here, not
         by the first served step."""
         st = self._stage
-        b = bucket_size(rows, multiple=self._n_shards)
+        b = bucket_size(rows, self.buckets, multiple=self._n_shards)
         batch = ed25519_batch.CompactBatch(
             np.zeros((b, 64), np.uint8), np.zeros((b, 64), np.uint8), np.zeros(b, np.int32),
             np.zeros((b, 32), np.uint8), np.zeros(b, np.uint8), np.zeros(b, bool))
@@ -454,7 +458,7 @@ class DeviceVoteVerifier:
         batch = ed25519_batch.prepare_compact(msgs, sigs, val_idx, st.epoch,
                                               pool=self._host_pool)
         batch.pre_ok &= keep
-        slot = np.full(bucket_size(n, multiple=self._n_shards), -1, np.int32)
+        slot = np.full(bucket_size(n, self.buckets, multiple=self._n_shards), -1, np.int32)
         slot[:n] = tx_slot
         q = st.val_set.quorum_power() if quorum is None else quorum
         return self._dispatch(batch, slot, prior_stake, n, n_slots, keep, st, q)
@@ -464,7 +468,7 @@ class DeviceVoteVerifier:
         contribute nothing), copy it to the device, launch the fused step
         and hand its output to the readback ring."""
         b = slot.shape[0]
-        b_slots = bucket_size(n_slots)
+        b_slots = bucket_size(n_slots, self.buckets)
         pad = b - batch.size
         prior = np.zeros(b_slots, np.int64 if st.wide else np.int32)
         if prior_stake is not None:
