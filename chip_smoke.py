@@ -22,7 +22,8 @@
    kvstore app -- and checks the outcome known by construction: exactly
    the txs whose honest stake reaches quorum commit, every certificate
    holds only valid votes worth at least quorum, the app holds exactly
-   those keys, the verify and tally kernels ran, and no host verify ran.
+   those keys, one fused verify + tally launch (txf_verify_tally) a step
+   and no verify alone or standalone tally, and no host verify ran.
 4. Committee certificates (K6, the verify kernel launched alone over one
    committee's unpadded tables): the README's committee configuration --
    256 validators at power 10, EpochConfig(length=1, committee_size=32),
@@ -48,12 +49,14 @@
    EngineConfig(max_batch=65536, max_slots=4096, mesh_devices=4) on a
    DeviceVoteVerifier over 4 shards laid round-robin over the visible
    cards (on one card, 4 shards on it): 4 steps of 4 x 16384 rows, each
-   shard's verify + partial tally on its card, the partials crossing by
-   peer copies and summed with the prior on every card. On the first
+   shard's fused verify + partial tally (txf_verify_tally's partial form)
+   on its card, the partials crossing by peer copies to the first card,
+   one reduce there with the prior, the result copied to every other
+   shard. On the first
    step's votes, in the same count of launches, the K5 entry points
    (sharded_verify_and_tally over the mesh, verify_batch on one shard's
    worth) and the ring step. Checks: the committed set known by
-   construction, 4 verify launches a sharded step, K5 and the ring equal
+   construction, 4 fused launches and 1 reduce a sharded step, K5 and the ring equal
    to the construction; then the one-card engine (max_batch 65536) on the
    same votes must give identical certificate bytes and app digest. K5
    and the K7 kernels (partial tally, reduce-quorum, ring hop, the whole
@@ -74,8 +77,8 @@
    and K5 over K8 through sharded_verify_and_tally; a second follower
    re-verifying the committee log over K8 (K6 rows over K8 at rungs 8 and
    16384); and the slice with every power times 2^25 (total past 2^30:
-   txf_tally64 on one card; on the same batch the engine's verifier and a
-   4-shard one, txf_tally_partial64 + txf_reduce_quorum64, equal to
+   txf_verify_tally64 on one card; on the same batch the engine's verifier
+   and a 4-shard one, txf_verify_tally64's partial + txf_reduce_quorum64, equal to
    ScalarVoteVerifier), the int64 kernels held bit-exact and timed.
 
 7. The four-lane txf_verify (K3, and K6's launch), between phases 2 and
@@ -115,7 +118,8 @@ plain version on the CPU and K3 also against the golden model.
    collector's seconds.
    Checks: certificate rows and app digest equal to the serial engine's
    (phase 3's run; the one-card engine of phase 5), every readback through
-   the side stream (sync_readbacks 0), every kernel of the path launched,
+   the side stream (sync_readbacks 0), one fused verify + tally launch a
+   ticket and the warm step (on the mesh one a shard, one reduce a step),
    and stop() leaving no thread, worker, segment or ring. Prints wall time
    and committed votes/s beside the serial engine's of this call, the
    first step's time against the rest, busy seconds per thread, the prep
@@ -135,7 +139,8 @@ plain version on the CPU and K3 also against the golden model.
    corpus' shuffled order), and the same feed with speculative_commit.
    Checks: certificate rows and delivered txs equal the serial engine's,
    the app state its own delivery log folded, priority batches, every bulk
-   drain a coalescer target or a counted flush, K3 and K4 launched, no
+   drain a coalescer target or a counted flush, one fused verify + tally
+   launch a ticket and a warm step, no
    host verify, speculative commits in the third run, stop() leaving
    nothing. Prints per run wall time, committed votes/s, the coalescer's
    and the lanes' counters, batches per rung with each rung's first step
@@ -144,6 +149,20 @@ plain version on the CPU and K3 also against the golden model.
    of its certificate's last vote), p50 and p99. K3 is then held against
    its plain version and timed at every rung the phase dispatched, one
    kernel row each.
+
+10. The fused verify + tally (after phase 7): txf_verify_tally and
+   txf_verify_tally64, the tally (K4) or a shard's partial (K7) carried by
+   txf_verify's encode launch (the last block to finish compares with the
+   quorum), held bit-exact against compact_step_packed's plain version at
+   64 and 16384 rows of the K3 batch over its 4096 slots, in int32 and
+   int64, over both fields, and the partial form on a quarter of each;
+   then an A/B in turns (txf_verify alone, fused, fused, alone) at 64 and
+   16384 rows (int64 at 16384, the partial at 4096) with torch.profiler's
+   kernel bodies beside the event windows. Every engine path requires one
+   fused launch a served or warm step in its field and width (on a mesh:
+   one a shard, and one reduce a step) and no standalone tally launch;
+   the small kernels' rows split their time into kernel body (profiler)
+   and host enqueue.
 
 ``--mesh`` runs only phase 5, its kernel rows and the threaded mesh cell,
 over 4 distinct cards: the engine builds its own mesh from mesh_devices=4
@@ -177,6 +196,7 @@ from txflow_tpu_torch.crypto import ed25519 as host_ed
 from txflow_tpu_torch.engine import TxExecutor, TxFlow
 from txflow_tpu_torch.epoch import EpochConfig
 from txflow_tpu_torch.ops import _lib, curve, ed25519_batch, fe, fe13, tally
+from txflow_tpu_torch.parallel import mesh as mesh_mod
 from txflow_tpu_torch.parallel import (
     Mesh, make_mesh, sharded_compact_step_packed, sharded_ring_step, sharded_verify_and_tally,
     to_host,
@@ -232,12 +252,32 @@ LANE_FEE = b"fee=10;"
 LANE_FEE_EVERY = 8
 LANE_RATE = 10_000  # votes/s
 LANE_CHUNK = 100
+# the standalone tally kernels: no served step launches them (the tally
+# rides in the fused verify's encode launch, fused_kernel)
+STANDALONE_TALLY = ("tally", "tally64", "tally_partial", "tally_partial64")
 # published HBM rates (NVIDIA data sheets); SXM is the default
 HBM_BYTES_PER_S = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def fused_kernel(fe_radix: int = 25, wide: bool = False, partial: bool = False) -> str:
+    """The ``_lib.launches`` name of the fused verify + tally entry: the
+    field's library, the quorum form (one card) or a shard's partial (a
+    mesh), the int32 or int64 tally."""
+    return ("verify" + ("13" if fe_radix == 13 else "") + ("_partial" if partial else "_tally")
+            + ("64" if wide else ""))
+
+
+def require_launches(launches: dict, want: dict, label: str, none_of=()) -> None:
+    """Exactly ``want`` launches of each kernel it names, and none of
+    ``none_of``."""
+    got = {k: launches[k] for k in want}
+    bad = {k: launches[k] for k in none_of if launches[k]}
+    require(got == want and not bad,
+            f"{label}: launches {got}, want {want}; launched and should not be: {bad}")
 
 
 def card_info() -> dict:
@@ -589,7 +629,8 @@ def kernel_phase(card: dict, corpus: Corpus, dev) -> tuple[list[dict], dict]:
     lib_ms = cuda_ms_window(library_tally, 500, warmup=5)
     bnd, by = bound_ms(card, nbytes(valid_i, slot_t, args[2], powers_t, prior_t, stake_k, maj_k),
                        B + S)
-    rows.append(dict(name="K4 stake tally (txf_tally)", route="cuda",
+    rows.append(dict(name="K4 stake tally, standalone (txf_tally; the fused tally's yardstick)",
+                     route="cuda",
                      source="txflow_tpu_torch/csrc/tally.cu",
                      replaces="txflow_tpu/ops/tally.py:114",
                      max_abs_err=int(max((packed[B : B + S] - stake_p).abs().max(),
@@ -598,8 +639,9 @@ def kernel_phase(card: dict, corpus: Corpus, dev) -> tuple[list[dict], dict]:
                      one_launch_window_ms=one_ms, shape=f"{B} votes, {S} slots"))
     log(f"K4 tally: bit-exact ({int(maj_p.sum())} slots at quorum); {ms:.4f} ms "
         f"({one_ms:.4f} ms in a window around one launch; plain {pms:.3f} ms, index_add_ + compare {lib_ms:.4f} ms, bound {bnd:.6f} ms by {by})")
+    rows[-1].update(small_kernel_split(run_tally))
     k3_batch = dict(args=args, n=n, n_ok=n_ok, mask=k3, keys=pubs + [BAD_PUB] + [bytes(32)] * 15,
-                    k3_ms=rows[2]["ms"], slot=slot_t, prior=prior_t, quorum=quorum,
+                    k3_ms=rows[2]["ms"], slot=slot_t, prior=prior_t, quorum=quorum, powers=powers_t,
                     special=dict(s_ge_l=0, off_curve=40, dup=n - 1, identity_r1=n,
                                  identity_r_p1=n + 1, padding=n + 2))
     return rows, k3_batch
@@ -662,7 +704,7 @@ def quarter_checks(card: dict, k3: dict, dev, ptx: dict) -> dict:
                 f"({int(k.sum())} valid, {int(rows[7].sum())} computed); {ms:.4f} ms")
     # the A/B: four lanes (K3) against one lane (K5) on the same rows
     ab = {"rows": MAX_BATCH}
-    names = ("txf_verify_kernel", "txf_verify_encode_kernel", "txf_verify_tables_kernel")
+    names = ("txf_verify_kernel", "txf_verify_encode_kernel<int32>", "txf_verify_tables_kernel")
     for r, a in by_field.items():
         vi = a[2].long().clamp(0, a[3].shape[0] - 1)
         k5_args = (a[0], a[1], a[3][vi].contiguous(), a[5], a[6], a[7])
@@ -690,6 +732,232 @@ def quarter_checks(card: dict, k3: dict, dev, ptx: dict) -> dict:
     log("A/B txf_verify (four lanes) vs txf_verify_tables (one lane) at "
         f"{MAX_BATCH} rows, in turns: " + json.dumps(ab))
     return {"quarter_checks": checks, "ab_four_lanes_vs_one": ab}
+
+
+# ---------------------------------------------------------------------------
+# The fused verify + tally (K4, and the K7 partial, in txf_verify's encode
+# launch), and the small kernels' time split into kernel body and host enqueue
+
+
+def kernel_body_ms(fn, calls: int, warmup: int = 2) -> dict:
+    """Device milliseconds a call of ``fn`` spends in each kernel (and
+    copy) it runs, by name, from torch.profiler's trace of ``calls`` calls
+    (each kernel's self device time over their number), with "total"
+    their sum. An empty trace or a profiler error is reported as such in
+    the result: the event windows time every row regardless."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+    except Exception as e:  # noqa: BLE001 -- a measurement, never a check
+        return {"error": repr(e)}
+    out = {}
+    for e in events:
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0)
+        if t:
+            m = re.match(r"(?:void )?([\w:]+(?:<[^(]*>)?)", e.key)
+            name = m.group(1) if m else e.key
+            out[name] = out.get(name, 0.0) + t / 1e3 / calls
+    if not out:
+        return {"error": "no device time in the trace"}
+    out["total"] = sum(out.values())
+    return out
+
+
+def host_enqueue_ms(fn, calls: int = 200) -> float:
+    """Host milliseconds a call of ``fn`` takes to enqueue its work (no
+    synchronise inside the loop): the rate at which this host can launch
+    it, the floor of an event window over many calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e3
+
+
+def small_kernel_split(fn, calls: int = 200) -> dict:
+    """A small kernel's event-window time split: the kernel's body on the
+    card (profiler) and the host's enqueue time a call."""
+    body = kernel_body_ms(fn, calls)
+    return {"kernel_body_ms": body.get("total"), "kernel_body_by_kernel": body,
+            "host_enqueue_ms": host_enqueue_ms(fn, calls)}
+
+
+def _rows_of(args, off: int, rung: int):
+    """``rung`` rows of a verify argument tuple (s, h, val_idx, tables,
+    quarters, r_y, r_sign, pre_ok) from row ``off``; the tables whole."""
+    return tuple(a if i in (3, 4) else a[off : off + rung] for i, a in enumerate(args))
+
+
+FUSED_RUNGS = (64, MAX_BATCH)
+
+
+def fused_rows(card: dict, k3: dict, dev) -> tuple[list[dict], dict]:
+    """The fused entry (txf_verify_tally / txf_verify_tally64: K3 with K4
+    in its encode launch; in the partial form K3 with a shard's K7
+    partial) at the rungs of FUSED_RUNGS of the K3 batch (from row 60 at
+    64 rows, past the rows that failed their pre-checks; the whole batch at
+    16384), over the batch's 4096 slots and its prior moved up to near the
+    quorum: held bit-exact
+    against compact_step_packed's plain version in int32 and int64 (every
+    power and the prior times 2^25) over both fields, and the partial form
+    on a quarter of the rung (one of 4 shards) against the plain partial.
+    Then the A/B in turns (the verify alone, fused, unfused, unfused,
+    fused, the verify alone; unfused: the verify, then the standalone
+    tally or partial, the parent's step) at 64 and 16384 rows in int32,
+    at 16384 in int64 and for the partial at 4096: CUDA-event windows
+    beside torch.profiler's kernel bodies and the host's enqueue time, the
+    epilogue's marginal time the fused call less the verify alone.
+    Returns (the
+    rows, launches to fill in by the caller; the checks and the A/B)."""
+    args25, slot, prior, quorum, powers = (k3[k] for k in ("args", "slot", "prior", "quorum",
+                                                          "powers"))
+    S = prior.shape[0]
+    # the prior moved up to [quorum - 190, quorum + 10): some slots at
+    # quorum before any vote, some crossing it with one vote
+    prior = prior + (quorum - 190)
+    scale = 2**25
+    powers64 = powers.long() * scale
+    prior64 = prior.long() * scale
+    quorum64 = (int(powers64.sum()) * 2) // 3 + 1
+    widths = {False: (powers, prior, quorum), True: (powers64, prior64, quorum64)}
+    epoch13 = ed25519_batch.EpochTables(k3["keys"], fe_radix=13)
+    by_field = {25: args25, 13: (*args25[:3], epoch13.device_tables(dev),
+                                 epoch13.device_quarter_tables(dev), *args25[5:])}
+
+    def step_args(a, sl, wide):
+        pw, pr, q = widths[wide]
+        return (a[0], a[1], a[2], a[5], a[6], a[7], sl, a[3], a[4], pw, pr, q)
+
+    checks = []
+    for r, args in by_field.items():
+        for rung in FUSED_RUNGS:
+            off = 60 if rung < MAX_BATCH else 0
+            a, sl = _rows_of(args, off, rung), slot[off : off + rung]
+            valid = ed25519_batch.verify_kernel_gather_plain(*a, fe_radix=r)
+            bs = rung // MESH_SHARDS
+            for wide in (False, True):
+                sa = step_args(a, sl, wide)
+                got = tally.compact_step_packed(*sa, fe_radix=r)
+                # compact_step_packed_plain's output, its plain verify made once above
+                st_p, mj_p = tally.tally_plain(valid, sl, a[2], *widths[wide])
+                want = torch.cat([valid.int(), st_p.view(torch.int32), mj_p])
+                pk, part = tally.compact_step_partial(
+                    *(x[:bs] for x in sa[:7]), sa[7], sa[8], sa[9], S, fe_radix=r)
+                want_part = tally.tally_partial_plain(valid[:bs], sl[:bs], a[2][:bs], sa[9], S)
+                torch.cuda.synchronize()
+                what = f"fused verify + tally (radix {r}, {rung} rows, {'int64' if wide else 'int32'})"
+                require(bool((got == want).all()), f"{what} != plain")
+                require(bool((pk[:bs] == valid[:bs].int()).all() and (part == want_part).all()),
+                        f"{what}, partial form on {bs} rows != plain")
+                stake, maj = tally.packed_stake(got, rung, S, wide)
+                require(int(maj.sum()) > 0 and int(valid.sum()) > 0, f"{what}: case too weak")
+                checks.append({"fe_radix": r, "rows": rung, "int64": wide, "valid": int(valid.sum()),
+                               "slots_at_quorum": int(maj.sum()), "max_stake": int(stake.max()),
+                               "max_abs_err": int(max((got - want).abs().max(),
+                                                      (part - want_part).abs().max())),
+                               "partial_rows": bs})
+                log(f"{what}: bit-exact with compact_step_packed's plain version "
+                    f"({int(valid.sum())} valid, {int(maj.sum())} slots at quorum, stake up to "
+                    f"{int(stake.max())}); the partial form on {bs} rows bit-exact")
+
+    # the A/B in turns: txf_verify alone against the fused entry
+    ab, rows = {}, []
+    cases = ((64, False, False), (MAX_BATCH, False, False), (MAX_BATCH, True, False),
+             (MAX_BATCH // MESH_SHARDS, False, True))
+    for rung, wide, partial in cases:
+        off = 60 if rung == 64 else 0
+        a, sl = _rows_of(args25, off, rung), slot[off : off + rung]
+        sa = step_args(a, sl, wide)
+        out = torch.empty(rung, dtype=torch.int32, device=dev)
+        acc = torch.empty(S, dtype=sa[9].dtype, device=dev)
+
+        pw, pr, q = widths[wide]
+        packed = torch.empty(tally.packed_size(rung, S, wide), dtype=torch.int32, device=dev)
+        sw = 2 * S if wide else S
+
+        def alone():
+            ed25519_batch.verify_into(out, *a)
+
+        if partial:
+            def fused():
+                tally.compact_step_partial(*sa[:10], S, partial=acc)
+
+            def unfused():  # the parent's partial step: verify, then the standalone partial
+                ed25519_batch.verify_into(out, *a)
+                tally.tally_partial(out, sl, a[2], pw, S)
+        else:
+            def fused():
+                tally.compact_step_packed(*sa)
+
+            def unfused():  # the parent's step: verify, then the standalone tally
+                ed25519_batch.verify_into(packed[:rung], *a)
+                tally.tally_into(packed[rung : rung + sw], packed[rung + sw :], packed[:rung], sl,
+                                 a[2], pw, pr, q)
+
+        reps = 50 if rung <= 4096 else 10
+        # in turns: alone, fused, unfused, unfused, fused, alone
+        t = [cuda_ms_window(fn, reps) for fn in (alone, fused, unfused, unfused, fused, alone)]
+        body = {"verify_alone": kernel_body_ms(alone, reps), "fused": kernel_body_ms(fused, reps),
+                "unfused": kernel_body_ms(unfused, reps)}
+        v_ms, f_ms, u_ms = (t[0] + t[5]) / 2, (t[1] + t[4]) / 2, (t[2] + t[3]) / 2
+        epi_body = (body["fused"]["total"] - body["verify_alone"]["total"]
+                    if "total" in body["fused"] and "total" in body["verify_alone"] else None)
+        key = f"{'partial' if partial else 'int64' if wide else 'int32'}_{rung}"
+        ab[key] = {"rows": rung, "slots": S, "verify_alone_ms": [t[0], t[5]],
+                   "fused_ms": [t[1], t[4]], "unfused_ms": [t[2], t[3]],
+                   "epilogue_ms": f_ms - v_ms, "saved_ms": u_ms - f_ms,
+                   "epilogue_body_ms": epi_body, "kernel_body_ms": body,
+                   "host_enqueue_ms": {"verify_alone": host_enqueue_ms(alone, 100),
+                                     "fused": host_enqueue_ms(fused, 100),
+                                     "unfused": host_enqueue_ms(unfused, 100)}}
+        log(f"A/B verify alone vs fused verify + {'partial' if partial else 'tally'} "
+            f"({'int64' if wide else 'int32'}, {rung} rows, {S} slots), in turns: "
+            + json.dumps(ab[key]))
+        n_ok = int(a[7].sum())
+        out_bytes = rung * 4 + (pr.numel() * pr.element_size() if partial else
+                                tally.packed_size(0, S, wide) * 4)
+        bnd, by = bound_ms(card, nbytes(*a, sl, pw) + (0 if partial else nbytes(pr)) + out_bytes
+                           + nbytes(curve.device_base_quarters(dev, 25)),
+                           n_ok * ed25519_batch.mads_per_signature(25) + rung + (0 if partial else S))
+        t0 = time.perf_counter()
+        if partial:
+            tally.tally_partial_plain(ed25519_batch.verify_kernel_gather_plain(*a), sl, a[2], pw, S)
+        else:
+            tally.compact_step_packed_plain(*sa)
+        torch.cuda.synchronize()
+        pms = (time.perf_counter() - t0) * 1e3
+        what = ("K7 per-shard partial fused into txf_verify's encode launch (txf_verify_tally, "
+                "partial form)" if partial else
+                f"K4 {'int64 ' if wide else ''}stake tally fused into txf_verify's encode launch "
+                f"(txf_verify_tally{'64' if wide else ''}, {rung} rows)")
+        err = max(c["max_abs_err"] for c in checks if c["fe_radix"] == 25 and c["int64"] == wide
+                  and c["rows"] == (MAX_BATCH if partial else rung))
+        rows.append(dict(
+            name=what, route="cuda",
+            source="txflow_tpu_torch/csrc/verify.cu, txflow_tpu_torch/csrc/tally.cuh",
+            replaces="txflow_tpu/parallel/mesh.py:114" if partial else "txflow_tpu/ops/tally.py:114",
+            launch_name=fused_kernel(25, wide, partial), max_abs_err=err, ms=f_ms, plain_ms=pms,
+            bound_ms=bnd, bound_by=by, library_ms=None, epilogue_ms=f_ms - v_ms,
+            epilogue_body_ms=epi_body, verify_alone_ms=v_ms, **VERIFY_LAUNCH_NOTE,
+            shape=f"{rung} rows, {n_ok} past the host pre-checks, {S} slots",
+            time_note="ms: the fused call (verify + tally, two kernels); epilogue_ms: it "
+                      "less txf_verify alone in turns; plain: one host-clock run"))
+    return rows, {"checks": checks, "ab": ab}
 
 
 # ---------------------------------------------------------------------------
@@ -818,7 +1086,7 @@ def slice_phase(corpus: Corpus, dev, fe_radix: int = 25, scale: int = 1, ref: di
         [Validator(v.address, v.pub_key, v.voting_power * scale) for v in corpus.val_set])
     wide = val_set.total_voting_power() >= 2**30
     vk = "verify13" if fe_radix == 13 else "verify"
-    tk = "tally64" if wide else "tally"
+    fk = fused_kernel(fe_radix, wide)
     flow, store, app = _node(corpus, EngineConfig(max_batch=MAX_BATCH, device=str(dev),
                                                   fe_radix=fe_radix), val_set=val_set)
     require(isinstance(flow.verifier, DeviceVoteVerifier) and flow.verifier.fe_radix == fe_radix
@@ -834,11 +1102,17 @@ def slice_phase(corpus: Corpus, dev, fe_radix: int = 25, scale: int = 1, ref: di
     launches = dict(_lib.launches)
     log(f"{label}: {run['steps']} steps, engine launches {engine_launches}, with the rest of the "
         f"path {launches}, host verifies by the engine {engine_host}")
-    require(engine_launches[vk] > 0 and engine_launches[tk] > 0, "a kernel of the path never ran")
-    other = ("verify13" if vk == "verify" else "verify", "tally" if wide else "tally64")
+    # one fused verify + tally launch a served step, in this field and
+    # width; no verify alone, no standalone tally
+    require_launches(engine_launches, {fk: run["steps"]}, label,
+                     none_of=(vk,) + STANDALONE_TALLY)
+    other_lib = "verify" if fe_radix == 13 else "verify13"
+    other = [k for k, lib in _lib.KERNELS.items() if lib == other_lib] + [
+        k for k in _lib.KERNELS if k.startswith("verify") and k.endswith("64") != wide
+        and ("_tally" in k or "_partial" in k)] + ["tally" if wide else "tally64"]
     require(all(launches[k] == 0 for k in other), f"a kernel of another field or width ran: {launches}")
-    # one timed device step per verify + tally pair: the timing wrapper saw them all
-    require(len(run["device_ms_per_step"]) == engine_launches[vk] == engine_launches[tk],
+    # one timed device step per fused launch: the timing wrapper saw them all
+    require(len(run["device_ms_per_step"]) == engine_launches[fk],
             f"{len(run['device_ms_per_step'])} timed device steps for launches {engine_launches}")
     require(engine_host == 0, "a host (scalar) verify ran in the engine")
     # the outcome known by construction, and the certificates against the
@@ -1089,12 +1363,14 @@ def threaded_phase(corpus: Corpus, dev, ref: dict, serial: dict, label: str, mes
     log(f"{label}: {steps} steps + the warm step, {workers} host-prep workers "
         f"(os.cpu_count(), {pool_stats['processes']} processes, {pool_stats['mp_method']}), "
         f"launches {launches}, host verifies {host_calls['n']}; ring {ring_stats}")
-    # every kernel of the path ran, once a shard a step and once for the warm step
+    # one fused launch a shard a step and for the warm step; on the mesh
+    # one reduce a step; no verify alone, no standalone tally
     if mesh is None:
-        want = {"verify": steps + 1, "tally": steps + 1}
+        want = {fused_kernel(): steps + 1}
     else:
-        want = {k: shards * (steps + 1) for k in ("verify", "tally_partial", "reduce_quorum")}
-    require({k: launches[k] for k in want} == want, f"{label}: launches {launches}, want {want}")
+        want = {fused_kernel(partial=True): shards * (steps + 1), "reduce_quorum": steps + 1}
+    require_launches(launches, want, label, none_of=("verify", "verify_tally" if mesh else
+                                                     "verify_partial") + STANDALONE_TALLY)
     require(host_calls["n"] == 0, f"{label}: a host (scalar) verify ran")
     require(ring_stats["stream_readbacks"] == steps + 1 and ring_stats["sync_readbacks"] == 0
             and ring_stats["host_readbacks"] == 0 and ring_stats["in_flight"] == 0,
@@ -1271,7 +1547,8 @@ def lanes_run(corpus: Corpus, dev, ref: dict, label: str, rate: float | None = N
     (the fee txs share the kvstore key "fee", so their last value follows
     the commit order, which the lanes change), priority batches, every
     bulk drain a coalescer target or a counted flush, every priority drain
-    counted, K3 and K4 launched once a ticket and once a warm step (one at
+    counted, the fused verify + tally launched once a ticket and once a
+    warm step (one at
     each rung up to the drain cap), no host verify, speculative commits when on, and stop() leaving no thread,
     worker, segment or ring. Returns the run's numbers."""
     votes = _cold_copies(corpus.votes)
@@ -1333,13 +1610,13 @@ def lanes_run(corpus: Corpus, dev, ref: dict, label: str, rate: float | None = N
     co, lanes, spec = stats["coalesce"], stats["lanes"], stats["spec"]
     log(f"{label}: {steps} steps + warm steps at {flow.warm_rungs}, launches {launches}, host "
         f"verifies {host_calls['n']}; coalescer {co}; lanes {lanes}; spec {spec}")
-    # one launch of each a ticket and a warm step (one at each rung up to
-    # the drain cap)
+    # one fused verify + tally launch a ticket and a warm step (one at each
+    # rung up to the drain cap); no verify alone, no standalone tally
     warm = len(flow.warm_rungs)
     require(flow.warm_rungs == [MAX_BATCH, 4096, 1024, 256, 64],
             f"{label}: warm steps at {flow.warm_rungs}")
-    want = {"verify": steps + warm, "tally": steps + warm}
-    require({k: launches[k] for k in want} == want, f"{label}: launches {launches}, want {want}")
+    require_launches(launches, {fused_kernel(): steps + warm}, label,
+                     none_of=("verify",) + STANDALONE_TALLY)
     require(len(submits) == steps, f"{label}: {len(submits)} submits for {steps} steps")
     require(host_calls["n"] == 0, f"{label}: a host (scalar) verify ran")
     require(ring_stats["stream_readbacks"] == steps + warm and ring_stats["sync_readbacks"] == 0
@@ -2054,18 +2331,20 @@ def mesh_phase(corpus: Corpus, mesh: Mesh, engine_builds_mesh: bool) -> tuple[di
     log(f"mesh: {steps} sharded steps over {[str(d) for d in mesh.devices]}, engine launches "
         f"{engine_launches}; with the K5 entry points and the ring step {launches}; "
         f"host verifies {host_calls['n']}")
-    per_step = {k: MESH_SHARDS * steps for k in ("verify", "tally_partial", "reduce_quorum")}
-    require({k: engine_launches[k] for k in per_step} == per_step,
-            f"engine launches {engine_launches}: not {MESH_SHARDS} of each a sharded step")
-    require(engine_launches["tally"] == 0 and engine_launches["verify_tables"] == 0
-            and engine_launches["ring_add"] == 0, "a kernel off the sharded step ran in the engine")
+    # a sharded step: one fused verify + partial launch a shard, one reduce
+    per_step = {"verify_partial": MESH_SHARDS * steps, "reduce_quorum": steps}
+    require_launches(engine_launches, per_step, "mesh engine",
+                     none_of=("verify", "verify_tally", "verify_tables", "ring_add")
+                     + STANDALONE_TALLY)
     require(len(run["device_ms_per_step"]) == steps, "a sharded step went untimed")
-    require(launches["verify_tables"] == MESH_SHARDS + 1, "K5 launches")
-    require(launches["ring_add"] == MESH_SHARDS * (MESH_SHARDS - 1), "ring hops")
-    require(launches["verify"] == per_step["verify"] + MESH_SHARDS, "ring step's verify launches")
-    require(launches["tally_partial"] == per_step["tally_partial"] + 2 * MESH_SHARDS
-            and launches["reduce_quorum"] == per_step["reduce_quorum"] + 2 * MESH_SHARDS,
-            "sharded_verify_and_tally / ring step tally launches")
+    # then sharded_verify_and_tally (K5 + standalone partials, one
+    # reduce), verify_batch (K5) and the ring step (fused partials, the
+    # ring's hops, a reduce a shard)
+    require_launches(launches, {
+        "verify_tables": MESH_SHARDS + 1, "ring_add": MESH_SHARDS * (MESH_SHARDS - 1),
+        "verify_partial": per_step["verify_partial"] + MESH_SHARDS, "tally_partial": MESH_SHARDS,
+        "reduce_quorum": steps + 1 + MESH_SHARDS}, "mesh path with K5 and the ring",
+        none_of=("verify", "verify_tally", "tally", "tally64", "tally_partial64"))
     require(host_calls["n"] == 0, "a host (scalar) verify ran")
     # the K5 and ring results against the construction
     want_stake = torch.from_numpy(fb.want_stake.astype(np.int32))
@@ -2087,14 +2366,16 @@ def mesh_phase(corpus: Corpus, mesh: Mesh, engine_builds_mesh: bool) -> tuple[di
     _lib.reset_launches()
     run1 = _drive(flow1, dev0)
     launches1 = dict(_lib.launches)
-    require(launches1["verify"] == launches1["tally"] == run1["steps"] > 0, f"one-card launches {launches1}")
+    require(run1["steps"] > 0, "the one-card engine ran no step")
+    require_launches(launches1, {fused_kernel(): run1["steps"]}, "one-card engine",
+                     none_of=("verify", "verify_partial", "reduce_quorum") + STANDALONE_TALLY)
     one_out = _outcome(corpus, flow1, store1, app1)
     require(one_out["rows"] == mesh_out["rows"], "certificate bytes differ between mesh and one card")
     require(one_out["digest"] == mesh_out["digest"], "app digest differs between mesh and one card")
     out = {"validators": corpus.n_vals, "txs": len(corpus.txs), "votes": len(corpus.votes),
            "quorum": quorum, "shards": MESH_SHARDS, "devices": [str(d) for d in mesh.devices],
            "engine_built_mesh": engine_builds_mesh, "first_batch_prep_s": prep_s,
-           "launches": launches, "engine_launches": engine_launches,
+           "launches": launches, "engine_launches": engine_launches, "one_card_launches": launches1,
            "committed_txs": mesh_out["committed_txs"], "committed_votes": mesh_out["committed_votes"],
            "certificates_equal_one_card": True, "digest_equal_one_card": True,
            "host_verifies": host_calls["n"], "sign_s": corpus.sign_s}
@@ -2110,6 +2391,16 @@ def mesh_phase(corpus: Corpus, mesh: Mesh, engine_builds_mesh: bool) -> tuple[di
         f"{mesh_out['committed_votes']} certificate votes; certificate bytes and app digest "
         f"equal to the one-card run's")
     return out, fb, one_out
+
+
+def count_step_ops(step, *args, **kwargs):
+    """One call of a sharded step: (its output, {"launches": kernel
+    launches by name, "copies": the psum's tensor copies (peer copies of
+    partials and copies of the reduced tail, ``parallel.mesh.copies``)})."""
+    before, copies0 = dict(_lib.launches), sum(mesh_mod.copies.values())
+    out = step(*args, **kwargs)
+    return out, {"launches": {k: v - before[k] for k, v in _lib.launches.items() if v != before[k]},
+                 "copies": sum(mesh_mod.copies.values()) - copies0}
 
 
 def launch_path_split(acc, b, reps: int = 2000) -> dict:
@@ -2209,12 +2500,14 @@ def mesh_rows(card: dict, corpus: Corpus, mesh: Mesh, fb: FirstBatch, launches: 
     require(bool((library_partial() == parts[0]).all()), "index_add partial != kernel")
     lib_ms = cuda_ms_window(library_partial, 500, warmup=5)
     bnd, by = bound_ms(card, nbytes(v0, s0, i0, powers) + S * 4, bs)
-    rows.append(dict(name="K7 per-shard partial tally (txf_tally_partial)", route="cuda",
+    rows.append(dict(name="K7 per-shard partial tally, standalone (txf_tally_partial; "
+                          "sharded_verify_and_tally's)", route="cuda",
                      source="txflow_tpu_torch/csrc/tally.cu", replaces="txflow_tpu/parallel/mesh.py:114",
                      launches=launches["tally_partial"],
                      max_abs_err=int(max((a - b).abs().max() for a, b in zip(parts, plains))),
                      ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
-                     shape=f"{bs} votes, {S} slots"))
+                     shape=f"{bs} votes, {S} slots",
+                     **small_kernel_split(lambda: tally.tally_partial(v0, s0, i0, powers, S))))
     log(f"K7 partial: bit-exact on {n} shards; {ms:.4f} ms (plain {pms:.3f}, index_add {lib_ms:.4f}, "
         f"bound {bnd:.6f} ms by {by})")
 
@@ -2242,12 +2535,15 @@ def mesh_rows(card: dict, corpus: Corpus, mesh: Mesh, fb: FirstBatch, launches: 
     require(bool((lt == st).all() and (lm.int() == mj).all()), "torch reduction != kernel")
     lib_ms = cuda_ms_window(library_reduce, 500, warmup=5)
     bnd, by = bound_ms(card, nbytes(stacked, prior) + 2 * S * 4, (n + 1) * S)
-    rows.append(dict(name="K7 psum: partials + prior >= quorum (txf_reduce_quorum)", route="cuda",
-                     source="txflow_tpu_torch/csrc/tally.cu", replaces="txflow_tpu/ops/tally.py:101",
-                     launches=launches["reduce_quorum"],
-                     max_abs_err=int(max((st - pst).abs().max(), (mj - pmj).abs().max())),
-                     ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
-                     shape=f"{n} partials x {S} slots"))
+    # launches_per_mesh_step and per_step_ms come from the sharded step's call below
+    reduce_row = dict(name="K7 psum: partials + prior >= quorum (txf_reduce_quorum)", route="cuda",
+                      source="txflow_tpu_torch/csrc/tally.cu", replaces="txflow_tpu/ops/tally.py:101",
+                      launches=launches["reduce_quorum"],
+                      max_abs_err=int(max((st - pst).abs().max(), (mj - pmj).abs().max())),
+                      ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+                      shape=f"{n} partials x {S} slots", library_per_step_ms=lib_ms,
+                      **small_kernel_split(lambda: tally.reduce_quorum(stacked, prior, quorum)))
+    rows.append(reduce_row)
     log(f"K7 reduce-quorum: bit-exact; {ms:.4f} ms (plain {pms:.3f}, torch.stack().sum(0) + prior "
         f"and compare {lib_ms:.4f}, bound {bnd:.6f} ms by {by})")
 
@@ -2270,6 +2566,7 @@ def mesh_rows(card: dict, corpus: Corpus, mesh: Mesh, fb: FirstBatch, launches: 
                      source="txflow_tpu_torch/csrc/tally.cu", replaces="txflow_tpu/parallel/mesh.py:130",
                      launches=launches["ring_add"], max_abs_err=err,
                      ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+                     **small_kernel_split(hop),
                      in_turns_ms={"ring_add": [t[0], t[3]], "torch_add": [t[1], t[2]]},
                      launch_path_us=split, shape=f"{S} slots"))
     log(f"K7 ring add: bit-exact; {ms:.4f} ms (in turns {t[0]:.4f}, {t[3]:.4f}; torch.add "
@@ -2281,9 +2578,15 @@ def mesh_rows(card: dict, corpus: Corpus, mesh: Mesh, fb: FirstBatch, launches: 
     args = fb.compact_args()
     shards = [mesh.shard(x) for x in args]
     consts = [mesh.replicate(epoch.device_tables(dev0)), mesh.replicate(epoch.device_quarter_tables(dev0)),
-              mesh.replicate(powers), mesh.replicate(prior)]
+              mesh.replicate(powers), prior]
     step = sharded_compact_step_packed(mesh, fe_radix=25)
-    got = to_host(step(*shards, *consts, quorum))
+    packed_k, ops = count_step_ops(step, *shards, *consts, quorum)
+    got = to_host(packed_k)
+    require(ops["launches"] == {"verify_partial": n, "reduce_quorum": 1}
+            and ops["copies"] <= 2 * (n - 1),
+            f"a sharded step made {ops}: want {n} fused launches, 1 reduce, <= {2 * (n - 1)} copies")
+    per_step = ops["launches"]["reduce_quorum"]
+    reduce_row.update(launches_per_mesh_step=per_step, per_step_ms=per_step * reduce_row["ms"])
     full = on0(args)
     pv = ed25519_batch.verify_kernel_gather_plain(*full[:3], consts[0][0], consts[1][0], *full[3:6])
     pst, pmj = tally.tally_plain(pv, full[6], full[2], powers, prior, quorum)
@@ -2302,8 +2605,10 @@ def mesh_rows(card: dict, corpus: Corpus, mesh: Mesh, fb: FirstBatch, launches: 
                   imad_per_s=card["imad_per_s"] * k_cards)
     bnd, by = bound_ms(scaled, nbytes(*args) + nbytes(consts[0][0], consts[1][0], powers, prior)
                        + n * (bs + 2 * S) * 4, n_ok * ed25519_batch.mads_per_signature(25))
-    rows.append(dict(name="K7 sharded fused step (per shard txf_verify + txf_tally_partial, "
-                          "peer copies, txf_reduce_quorum)", route="cuda",
+    rows.append(dict(name="K7 sharded fused step (per shard txf_verify_tally's partial form, "
+                          "peer copies, one txf_reduce_quorum)", route="cuda",
+                     launches_per_step=ops["launches"], copies_per_step=ops["copies"],
+                     ctypes_calls_per_step=sum(ops["launches"].values()),
                      source="txflow_tpu_torch/parallel/mesh.py", replaces="txflow_tpu/parallel/mesh.py:114",
                      launches=steps, max_abs_err=int((got - want).abs().max()), ms=ms, plain_ms=pms,
                      bound_ms=bnd, bound_by=by, library_ms=None, cards=k_cards,
@@ -2443,7 +2748,7 @@ def k8_rows(card: dict, k3: dict, dev, launches: dict, ptx: dict) -> tuple[list[
                           "runs inside txf_verify of verify13 on the radix-13 path)",
                      route="cuda", source="txflow_tpu_torch/csrc/fe25519_13.cuh",
                      replaces="txflow_tpu/ops/fe13.py:113", launched_in="txf_verify (verify13)",
-                     launches=launches["verify13"], max_abs_err=int((k - p).abs().max()), ms=ms,
+                     launches=launches["verify13_tally"], max_abs_err=int((k - p).abs().max()), ms=ms,
                      plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=None,
                      shape=f"{N_FE} x (mul,sq,sub,inv,freeze)"))
     log(f"K8 fe13_ops: bit-exact over {N_FE} elements; {ms:.4f} ms (plain {pms:.1f} ms, bound {bnd:.5f} ms by {by})")
@@ -2471,7 +2776,7 @@ def k8_rows(card: dict, k3: dict, dev, launches: dict, ptx: dict) -> tuple[list[
                           "runs inside txf_verify of verify13)", route="cuda",
                      source="txflow_tpu_torch/csrc/ge25519.cuh (-DTXF_FE_RADIX=13)",
                      replaces="txflow_tpu/ops/curve.py:162", launched_in="txf_verify (verify13)",
-                     launches=launches["verify13"],
+                     launches=launches["verify13_tally"],
                      max_abs_err=int(max((k2[0] - p2[0]).abs().max(), (k2[1] - p2[1]).abs().max())),
                      ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=None,
                      shape=f"{N_DSM} pairs"))
@@ -2503,7 +2808,7 @@ def k8_rows(card: dict, k3: dict, dev, launches: dict, ptx: dict) -> tuple[list[
                      source="txflow_tpu_torch/csrc/verify.cu (-DTXF_FE_RADIX=13), "
                             "txflow_tpu_torch/csrc/fe25519_13.cuh",
                      replaces="txflow_tpu/ops/ed25519_batch.py:384 under txflow_tpu/ops/fe.py:173",
-                     launches=launches["verify13"], max_abs_err=int((k.int() - p.int()).abs().max()),
+                     launches=launches["verify13_tally"], max_abs_err=int((k.int() - p.int()).abs().max()),
                      ms=ms, plain_ms=pms, bound_ms=bnd13, bound_by=by13, library_ms=None,
                      **VERIFY_LAUNCH_NOTE, shape=f"{MAX_BATCH} rows, {n_ok} past the host pre-checks",
                      time_note="plain: one run over the whole batch"))
@@ -2553,7 +2858,8 @@ def wide_check(corpus: Corpus, mesh: Mesh, flow) -> dict:
     ScalarVoteVerifier on the same batch -- the first votes in arrival
     order with a nonzero prior -- give the same decisions and stake sums;
     so does a DeviceVoteVerifier of the same set over the round-robin
-    mesh (txf_tally_partial64 per shard, txf_reduce_quorum64)."""
+    mesh (txf_verify_tally64 in its partial form per shard, one
+    txf_reduce_quorum64)."""
     n = MAX_BATCH if host_ed.HAVE_CRYPTOGRAPHY else 1024  # the host verifier's time
     vals = flow.val_set
     msgs, sigs, vix, slots, _c = _first_batch(corpus, n, flow.verifier.epoch)
@@ -2562,8 +2868,13 @@ def wide_check(corpus: Corpus, mesh: Mesh, flow) -> dict:
     prior = np.random.default_rng(SEED + 17).integers(total // 3, total * 2 // 3, n_slots)
     got = flow.verifier.verify_and_tally(msgs, sigs, vix, slots, n_slots, prior_stake=prior)
     want = ScalarVoteVerifier(vals).verify_and_tally(msgs, sigs, vix, slots, n_slots, prior_stake=prior)
-    sharded = DeviceVoteVerifier(vals, mesh=mesh, fe_radix=25).verify_and_tally(
-        msgs, sigs, vix, slots, n_slots, prior_stake=prior)
+    sharded, ops = count_step_ops(DeviceVoteVerifier(vals, mesh=mesh, fe_radix=25).verify_and_tally,
+                                  msgs, sigs, vix, slots, n_slots, prior_stake=prior)
+    # n votes are one step of the mesh verifier: a fused partial a shard, one reduce
+    require(ops["launches"] == {"verify_partial64": mesh.size, "reduce_quorum64": 1}
+            and ops["copies"] <= 2 * (mesh.size - 1),
+            f"the int64 sharded step made {ops}: want {mesh.size} fused partials, 1 reduce, "
+            f"<= {2 * (mesh.size - 1)} copies")
     for name, r in (("one card", got), ("mesh", sharded)):
         for f in ("valid", "stake", "maj23", "dropped"):
             require(np.array_equal(getattr(r, f), getattr(want, f)), f"int64 tally ({name}) {f} != scalar")
@@ -2571,15 +2882,19 @@ def wide_check(corpus: Corpus, mesh: Mesh, flow) -> dict:
             "int64 check too weak")
     log(f"int64 tally: the engine's verifier and a {mesh.size}-shard one equal ScalarVoteVerifier on "
         f"{n} votes over {n_slots} slots (stake up to {int(want.stake.max())}, "
-        f"{int(want.maj23.sum())} slots at quorum)")
-    return {"wide_check_votes": n, "wide_check_slots": n_slots, "wide_check_max_stake": int(want.stake.max())}
+        f"{int(want.maj23.sum())} slots at quorum); the sharded step made {ops}")
+    return {"wide_check_votes": n, "wide_check_slots": n_slots, "wide_check_max_stake": int(want.stake.max()),
+            "wide_mesh_step": ops}
 
 
-def wide_rows(card: dict, corpus: Corpus, k3: dict, dev, launches: dict, scale: int) -> list[dict]:
+def wide_rows(card: dict, corpus: Corpus, k3: dict, dev, launches: dict, scale: int,
+              mesh_step: dict) -> list[dict]:
     """The int64 tally kernels at the main path's shapes (the K3 batch of
     MAX_BATCH votes over N_TXS slots, powers ``scale`` times the corpus'),
     each bit-exact against its plain version and timed beside its bound
-    and one PyTorch call of the same function."""
+    and one PyTorch call of the same function. ``mesh_step`` is
+    ``count_step_ops``'s count of the int64 sharded step (``wide_check``):
+    the reduce row's launches a step."""
     rows = []
     args, S = k3["args"], N_TXS
     valid = k3["mask"].int()
@@ -2607,12 +2922,14 @@ def wide_rows(card: dict, corpus: Corpus, k3: dict, dev, launches: dict, scale: 
     require(bool((library_tally().int() == pmj).all()), "index_add int64 tally != plain")
     lib_ms = cuda_ms_window(library_tally, 500, warmup=5)
     bnd, by = bound_ms(card, nbytes(valid, slot_t, vidx, powers, prior, sw, mj), MAX_BATCH + S)
-    rows.append(dict(name="K4 int64 stake tally (txf_tally64)", route="cuda",
+    rows.append(dict(name="K4 int64 stake tally, standalone (txf_tally64)", route="cuda",
                      source="txflow_tpu_torch/csrc/tally.cu", replaces="txflow_tpu/ops/tally.py:114",
                      launches=launches["tally64"],
                      max_abs_err=int(max((kst - pst).abs().max(), (mj - pmj).abs().max())),
                      ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
-                     shape=f"{MAX_BATCH} votes, {S} slots, total power {int(powers.sum())}"))
+                     shape=f"{MAX_BATCH} votes, {S} slots, total power {int(powers.sum())}",
+                     **small_kernel_split(lambda: tally.tally_into(sw, mj, valid, slot_t, vidx, powers,
+                                                                   prior, quorum))))
     log(f"K4 tally64: bit-exact ({int(pmj.sum())} slots at quorum, stake up to {int(pst.max())}); "
         f"{ms:.4f} ms (plain {pms:.3f}, index_add {lib_ms:.4f}, bound {bnd:.6f} ms by {by})")
 
@@ -2637,12 +2954,14 @@ def wide_rows(card: dict, corpus: Corpus, k3: dict, dev, launches: dict, scale: 
     require(bool((library_partial() == parts[0]).all()), "index_add int64 partial != kernel")
     lib_ms = cuda_ms_window(library_partial, 500, warmup=5)
     bnd, by = bound_ms(card, nbytes(v0, s0, i0, powers) + S * 8, bs)
-    rows.append(dict(name="K7 int64 per-shard partial tally (txf_tally_partial64)", route="cuda",
+    rows.append(dict(name="K7 int64 per-shard partial tally, standalone (txf_tally_partial64)",
+                     route="cuda",
                      source="txflow_tpu_torch/csrc/tally.cu", replaces="txflow_tpu/parallel/mesh.py:114",
                      launches=launches["tally_partial64"],
                      max_abs_err=int(max((a - b).abs().max() for a, b in zip(parts, plains))),
                      ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
-                     shape=f"{bs} votes (one of {MESH_SHARDS} shards), {S} slots"))
+                     shape=f"{bs} votes (one of {MESH_SHARDS} shards), {S} slots",
+                     **small_kernel_split(lambda: tally.tally_partial(v0, s0, i0, powers, S))))
     log(f"K7 partial64: bit-exact on {MESH_SHARDS} shards; {ms:.4f} ms (plain {pms:.3f}, index_add "
         f"{lib_ms:.4f}, bound {bnd:.6f} ms by {by})")
     stacked = torch.stack(parts)
@@ -2662,12 +2981,16 @@ def wide_rows(card: dict, corpus: Corpus, k3: dict, dev, launches: dict, scale: 
     require(bool((lt == rst).all() and (lm.int() == rmj).all()), "torch int64 reduction != kernel")
     lib_ms = cuda_ms_window(library_reduce, 500, warmup=5)
     bnd, by = bound_ms(card, nbytes(stacked, prior) + S * 8 + S * 4, (MESH_SHARDS + 1) * S)
+    per_step = mesh_step["launches"]["reduce_quorum64"]
     rows.append(dict(name="K7 int64 psum: partials + prior >= quorum (txf_reduce_quorum64)", route="cuda",
                      source="txflow_tpu_torch/csrc/tally.cu", replaces="txflow_tpu/ops/tally.py:101",
                      launches=launches["reduce_quorum64"],
                      max_abs_err=int(max((rst - pst2).abs().max(), (rmj - pmj2).abs().max())),
                      ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
-                     shape=f"{MESH_SHARDS} partials x {S} slots"))
+                     shape=f"{MESH_SHARDS} partials x {S} slots",
+                     launches_per_mesh_step=per_step, per_step_ms=per_step * ms,
+                     library_per_step_ms=lib_ms,
+                     **small_kernel_split(lambda: tally.reduce_quorum(stacked, prior, quorum))))
     log(f"K7 reduce64: bit-exact, equal to the one-card int64 tally; {ms:.4f} ms (plain {pms:.3f}, "
         f"stack().sum(0) + prior and compare {lib_ms:.4f}, bound {bnd:.6f} ms by {by})")
     return rows
@@ -2790,13 +3113,14 @@ def main() -> int:
         f"{int(corpus.expect_commit.sum())}/{N_TXS} txs reach quorum on honest stake")
     rows, k3 = kernel_phase(card, corpus, dev)
     qc = quarter_checks(card, k3, dev, ptx)
+    frows, fused = fused_rows(card, k3, dev)
     sl, sl_res = slice_phase(corpus, dev)
     ths = threaded_phase(corpus, dev, sl_res, sl, "threaded slice")
     ths_inline = threaded_phase(corpus, dev, sl_res, sl, "threaded slice, commits inline",
                                 pipeline_commits=False)
     sl_again = serial_again(corpus, dev, sl_res, "serial slice again")
     lp = lanes_phase(dev)
-    by_name = {"K1": "verify", "K2": "verify", "K3": "verify", "K4": "tally"}
+    by_name = {"K1": "verify_tally", "K2": "verify_tally", "K3": "verify_tally", "K4": "tally"}
     for r in rows:
         r["launches"] = sl["launches"][by_name[r["name"][:2]]]
     rows += k3_rung_rows(card, k3, dev, lp["k3_launches_by_rung"])
@@ -2812,9 +3136,9 @@ def main() -> int:
     scale = 2**25
     wide, _ = slice_phase(corpus, dev, scale=scale, ref=sl_res, label="int64 slice",
                           extra=lambda flow: wide_check(corpus, mesh_rr, flow))
-    require(wide["launches"]["tally_partial64"] > 0 and wide["launches"]["reduce_quorum64"] > 0,
+    require(wide["launches"]["verify_partial64"] > 0 and wide["launches"]["reduce_quorum64"] > 0,
             "the int64 mesh kernels never ran")
-    rows += wide_rows(card, corpus, k3, dev, wide["launches"], scale)
+    rows += wide_rows(card, corpus, k3, dev, wide["launches"], scale, wide["wide_mesh_step"])
     t0 = time.perf_counter()
     com = CommitteeCorpus(SEED + 3)
     log(f"committee corpus: {len(com.votes)} votes signed in {com.sign_s:.1f} s "
@@ -2845,9 +3169,26 @@ def main() -> int:
     rows += mesh_rows(card, mcorpus, mesh, fb, mp["launches"], mp["mesh"]["steps"])
     thm = threaded_phase(mcorpus, mesh.devices[0], one_res, mp["mesh"], "threaded mesh",
                          mesh=mesh, max_batch=MESH_BATCH, max_slots=MESH_SLOTS)
+    # the fused rows' launches: each path's count of its fused entry
+    for r in frows:
+        name = r.pop("launch_name")
+        by_path = {
+            "verify_tally": {"slice": sl["engine_launches"][name],
+                             "threaded_slice": ths["launches"][name],
+                             "threaded_slice_commits_inline": ths_inline["launches"][name],
+                             "lanes": {k: run["launches"][name] for k, run in lp["runs"].items()},
+                             "mesh_one_card": mp["one_card_launches"][name]},
+            "verify_tally64": {"int64_slice": wide["engine_launches"][name]},
+            "verify_partial": {"mesh": mp["engine_launches"][name],
+                               "threaded_mesh": thm["launches"][name]},
+        }[name]
+        r["launches"] = next(iter(by_path.values()))
+        r["launches_by_path"] = by_path
+    rows += frows
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "ptxas": ptx, "kernels": rows, "txf_verify_quarters": qc, "slice": sl,
+        json.dump({"card": card, "ptxas": ptx, "kernels": rows, "txf_verify_quarters": qc,
+                   "fused_verify_tally": fused, "slice": sl,
                    "threaded_slice": ths, "threaded_slice_commits_inline": ths_inline,
                    "serial_slice_again": sl_again, "lanes": lp,
                    "radix13_slice": s13, "int64_slice": wide,
@@ -2863,6 +3204,7 @@ def main() -> int:
         log(json.dumps({name: {k: v for k, v in run.items() if k != "step_s"}}))
     log(json.dumps({"ab_k3_verify13": ab}))
     log(json.dumps({"txf_verify_quarters": qc}))
+    log(json.dumps({"fused_verify_tally": fused}))
     log(json.dumps({"committee": {k: v for k, v in cm.items() if k not in (
         "step_s", "vote_heights_per_response", "k6_one_launch_window_ms_per_group",
         "k6_main_path_checked")}}))

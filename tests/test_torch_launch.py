@@ -179,7 +179,9 @@ def test_libraries_are_keyed_by_library_not_source():
     assert _lib.LIBS["verify"][1] == [] and _lib.LIBS["verify13"][1] == ["-DTXF_FE_RADIX=13"]
     assert set(_lib.KERNELS.values()) == set(_lib.LIBS)
     assert {k for k, v in _lib.KERNELS.items() if v == "verify13"} == {
-        "fe13_ops", "dsm_encode13", "verify13", "verify_tables13"}
+        "fe13_ops", "dsm_encode13", "verify13", "verify_tables13", "verify13_tally",
+        "verify13_tally64", "verify13_partial", "verify13_partial64"}
     assert {k for k, v in _lib.KERNELS.items() if k.endswith("64")} == {
-        "tally64", "tally_partial64", "reduce_quorum64"}
+        "tally64", "tally_partial64", "reduce_quorum64", "verify_tally64", "verify_partial64",
+        "verify13_tally64", "verify13_partial64"}
     assert _lib.BASE_TABLE_RADIX == {"verify": 25, "verify13": 13}

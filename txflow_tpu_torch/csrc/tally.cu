@@ -31,25 +31,17 @@
 // no 8-byte alignment inside the int32 vector. The int32 forms stay for
 // every smaller set. An int64 sum cannot overflow while the total power is
 // below 2^62 (verifier.py enforces that bound).
+//
+// The served path launches neither tally kernel: the tally and the shard
+// partial ride in the encode launch of txf_verify_tally (verify.cu), with
+// the arithmetic of tally.cuh that these kernels share. txf_tally and
+// txf_tally_partial stay as the standalone counterparts (the yardstick of
+// that fused tally); the mesh's psum runs txf_reduce_quorum once a step,
+// on the mesh's first card.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-__device__ __forceinline__ void acc_add(int32_t* p, int32_t v) { atomicAdd(p, v); }
-
-__device__ __forceinline__ void acc_add(int64_t* p, int64_t v) {
-  // two's complement: the unsigned 64-bit add is the signed one
-  atomicAdd(reinterpret_cast<unsigned long long*>(p), static_cast<unsigned long long>(v));
-}
-
-// Slot s's stake into the packed segment: one int32, or an int64 as two
-// int32 words (low, high).
-__device__ __forceinline__ void put_stake(int32_t* out, int s, int32_t v) { out[s] = v; }
-
-__device__ __forceinline__ void put_stake(int32_t* out, int s, int64_t v) {
-  const uint64_t u = static_cast<uint64_t>(v);
-  out[2 * s] = static_cast<int32_t>(static_cast<uint32_t>(u));
-  out[2 * s + 1] = static_cast<int32_t>(static_cast<uint32_t>(u >> 32));
-}
+#include "tally.cuh"
 
 // prior == nullptr: start from 0; maj == nullptr: no compare (a partial);
 // val_idx == nullptr: powers holds each vote's own power ([B]);
@@ -67,24 +59,11 @@ txf_tally_kernel(const int32_t* __restrict__ valid,
   for (int s = threadIdx.x; s < S; s += blockDim.x)
     acc[s] = prior ? prior[s] : Acc(0);
   __syncthreads();
-  for (int i = threadIdx.x; i < B; i += blockDim.x) {
-    const int32_t sl = slot[i];
-    if (valid[i] && sl >= 0 && sl < S) {
-      int32_t v = i;
-      if (val_idx) {
-        v = val_idx[i];
-        v = v < 0 ? 0 : (v >= n_vals ? n_vals - 1 : v);
-      }
-      acc_add(&acc[sl], powers[v]);
-    }
-  }
+  for (int i = threadIdx.x; i < B; i += blockDim.x)
+    if (valid[i]) tally_add(acc, S, slot[i], powers[val_idx ? clamp_val(val_idx[i], n_vals) : i]);
   if (!maj && !words) return;
   __syncthreads();
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    const Acc v = acc[s];
-    if (words) put_stake(words, s, v);
-    if (maj) maj[s] = v >= quorum ? 1 : 0;
-  }
+  for (int s = threadIdx.x; s < S; s += blockDim.x) tally_close(acc[s], s, quorum, words, maj);
 }
 
 // stake[s] = prior[s] + sum over k < n of parts[k][s]; maj[s] = stake >= quorum.
@@ -98,8 +77,7 @@ txf_reduce_quorum_kernel(const Acc* __restrict__ parts, int n,
   if (s >= S) return;
   Acc acc = prior[s];
   for (int k = 0; k < n; ++k) acc += parts[(int64_t)k * S + s];
-  put_stake(stake, s, acc);
-  maj[s] = acc >= quorum ? 1 : 0;
+  tally_close(acc, s, quorum, stake, maj);
 }
 
 // acc[s] += b[s]: one ring hop, in place.

@@ -61,14 +61,33 @@
 // in registers, and rows whose host pre-checks failed (bucket padding,
 // S >= L, off-curve keys, in-batch repeats) return at once, a whole group
 // together, instead of computing a result that the AND would discard.
+//
+// The served step (txf_verify_tally, txf_verify_tally64) carries the
+// stake tally in the same two launches: K4 on one card, or a shard's
+// partial (K7) on a mesh. Replaces, beside K3: txflow_tpu/ops/tally.py
+// :compact_step_packed's tally (power gather, segment-sum, prior, the
+// quorum compare). The tally is launch-bound, not work-bound (one block's
+// few microseconds of latency and a launch for about 12 bytes a vote;
+// tally.cu), so it gets no launch of its own: the first launch also seeds
+// the accumulator (prior stake, or 0 for a partial) and zeroes the
+// call's completion counter; each thread of the encode launch adds its
+// row's power into its slot by an integer atomic when the row is valid;
+// and the block that finishes last (a __threadfence, then one atomic on
+// the counter a block) compares every slot with the quorum and writes
+// the packed stake and maj23 segments. Stream order puts the seed before
+// every add. The counter is the call's own scratch, never a __device__
+// global: two steps in flight, or the priority and bulk lanes, launch on
+// one card. The arithmetic is tally.cuh's, shared with tally.cu.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "ge25519.cuh"
+#include "tally.cuh"
 
 #define TXF_ROW (4 * TXF_NLIMB)  // int32 per PNiels table entry
 #define TXF_QUARTERS 4
 #define TXF_QWINDOWS 16  // windows a lane runs: 64 bits of each scalar
+#define TXF_CLOSE_LOADS 16  // slots a thread of the closing block reads at once
 
 // Base-point table [16][4][TXF_NLIMB] of the one-lane kernels (K5, the K2
 // check kernel), written once per card by txf_set_base_table (the host
@@ -106,10 +125,6 @@ __device__ __noinline__ void dsm_encode_row(int i, const uint8_t* __restrict__ s
   ge_encode(y, parity, &acc);
 }
 
-__device__ __forceinline__ int clamp_val(int32_t v, int n_vals) {
-  return v < 0 ? 0 : (v >= n_vals ? n_vals - 1 : v);
-}
-
 // encode(P) against the signature's raw R: y limbs and the sign bit.
 __device__ __forceinline__ int32_t r_matches(int i, const fe y, int32_t parity,
                                              const uint8_t* __restrict__ r_y,
@@ -136,7 +151,9 @@ __device__ __forceinline__ void ge_shfl_xor(ge_p3* q, const ge_p3* p, int r,
 // [V][16][TXF_ROW] (quarter 0); quarter_tables [V][3][16][TXF_ROW]
 // (quarters 1-3). Lane 0 of each group writes the row's sum P = [S]B +
 // [h](-A) as (X, Y, Z) into points [B][3][TXF_NLIMB]; a row whose
-// pre-checks failed writes nothing.
+// pre-checks failed writes nothing. With seed != nullptr (the fused
+// tally) the grid first copies seed_words int32 words of seed_from into
+// seed (the accumulator; seed_from nullptr: zeros) and zeroes *done.
 __global__ void __launch_bounds__(128)
 txf_verify_kernel(const uint8_t* __restrict__ s_nib,
                   const uint8_t* __restrict__ h_nib,
@@ -145,10 +162,19 @@ txf_verify_kernel(const uint8_t* __restrict__ s_nib,
                   const int32_t* __restrict__ quarter_tables, int n_vals,
                   const int32_t* __restrict__ base_quarters,
                   const uint8_t* __restrict__ pre_ok,
-                  int32_t* __restrict__ points, int B) {
+                  int32_t* __restrict__ points, int B,
+                  int32_t* __restrict__ seed,
+                  const int32_t* __restrict__ seed_from, int seed_words,
+                  unsigned* __restrict__ done) {
   __shared__ int32_t s_base[TXF_QUARTERS * 16 * TXF_ROW];
   for (int k = threadIdx.x; k < TXF_QUARTERS * 16 * TXF_ROW; k += blockDim.x)
     s_base[k] = base_quarters[k];
+  if (seed) {
+    const int stride = gridDim.x * blockDim.x;
+    for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < seed_words; k += stride)
+      seed[k] = seed_from ? seed_from[k] : 0;
+  }
+  if (done && blockIdx.x == 0 && threadIdx.x == 0) *done = 0;
   __syncthreads();
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = t >> 2;
@@ -206,30 +232,72 @@ txf_verify_kernel(const uint8_t* __restrict__ s_nib,
 // (the encode is one serial chain of 267 products: in the first launch
 // three of a group's four lanes would idle through it, so a warp would
 // pay it for 8 rows instead of 32).
+//
+// With slot != nullptr it carries the tally as its epilogue: a valid
+// row's thread adds powers[clamp(val_idx)] into acc[slot] (slots outside
+// [0, S) add nothing). With done != nullptr the block that finishes last
+// then closes every slot of acc (tally_close: the stake words when words
+// != nullptr, maj23 when maj != nullptr) and leaves *done at 0. No thread
+// returns before the completion step.
+template <typename Acc>
 __global__ void __launch_bounds__(128)
 txf_verify_encode_kernel(const int32_t* __restrict__ points,
                          const uint8_t* __restrict__ r_y,
                          const uint8_t* __restrict__ r_sign,
                          const uint8_t* __restrict__ pre_ok,
-                         int32_t* __restrict__ out, int B) {
+                         int32_t* __restrict__ out, int B,
+                         const int32_t* __restrict__ slot,
+                         const int32_t* __restrict__ val_idx,
+                         const Acc* __restrict__ powers, int n_vals, Acc* acc,
+                         Acc quorum, int32_t* __restrict__ words,
+                         int32_t* __restrict__ maj, unsigned* done, int S) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  if (!pre_ok[i]) {
-    out[i] = 0;
-    return;
-  }
-  const int32_t* o = points + (int64_t)i * 3 * TXF_NLIMB;
-  ge_p3 p;
+  int32_t ok = 0;
+  if (i < B && pre_ok[i]) {
+    const int32_t* o = points + (int64_t)i * 3 * TXF_NLIMB;
+    ge_p3 p;
 #pragma unroll
-  for (int l = 0; l < TXF_NLIMB; ++l) {
-    p.X[l] = o[l];
-    p.Y[l] = o[TXF_NLIMB + l];
-    p.Z[l] = o[2 * TXF_NLIMB + l];
+    for (int l = 0; l < TXF_NLIMB; ++l) {
+      p.X[l] = o[l];
+      p.Y[l] = o[TXF_NLIMB + l];
+      p.Z[l] = o[2 * TXF_NLIMB + l];
+    }
+    fe y;
+    int32_t parity;
+    ge_encode(y, &parity, &p);
+    ok = r_matches(i, y, parity, r_y, r_sign);
   }
-  fe y;
-  int32_t parity;
-  ge_encode(y, &parity, &p);
-  out[i] = r_matches(i, y, parity, r_y, r_sign);
+  if (i < B) {
+    out[i] = ok;
+    if (slot && ok) tally_add(acc, S, slot[i], powers[clamp_val(val_idx[i], n_vals)]);
+  }
+  if (!done) return;  // the same for every thread of the grid
+  // last block done: every block's adds are visible before its count
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(done, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // The close is the launch's serial tail, one block over all S slots:
+  // each thread reads its next TXF_CLOSE_LOADS slots from L2 (past L1:
+  // the adds went there) before it writes any, so that many round trips
+  // overlap instead of one a slot.
+  for (int s0 = threadIdx.x; s0 < S; s0 += TXF_CLOSE_LOADS * blockDim.x) {
+    Acc v[TXF_CLOSE_LOADS];
+#pragma unroll
+    for (int k = 0; k < TXF_CLOSE_LOADS; ++k) {
+      const int s = s0 + k * blockDim.x;
+      v[k] = s < S ? load_l2(acc + s) : Acc(0);
+    }
+#pragma unroll
+    for (int k = 0; k < TXF_CLOSE_LOADS; ++k) {
+      const int s = s0 + k * blockDim.x;
+      if (s < S) tally_close(v[k], s, quorum, words, maj);
+    }
+  }
+  if (threadIdx.x == 0) *done = 0;
 }
 
 // K5: the same check in one thread a signature, with one gathered -A
@@ -313,6 +381,35 @@ static inline int grid_for(int n, int threads) {
   return (n + threads - 1) / threads;
 }
 
+// txf_verify's two launches, the second carrying the tally when slot !=
+// nullptr (see txf_verify_encode_kernel); the first seeds acc (S values
+// of Acc) from prior (nullptr: 0) and zeroes *done when there is a tally.
+// At least one block each, so that a call of no rows still writes the
+// tally of its prior.
+template <typename Acc>
+static int verify_launches(const uint8_t* s_nib, const uint8_t* h_nib,
+                           const int32_t* val_idx, const int32_t* tables,
+                           const int32_t* quarter_tables, int n_vals,
+                           const int32_t* base_quarters, const uint8_t* r_y,
+                           const uint8_t* r_sign, const uint8_t* pre_ok,
+                           int32_t* points, int32_t* out, const int32_t* slot,
+                           const Acc* powers, const Acc* prior, Acc quorum,
+                           Acc* acc, int32_t* words, int32_t* maj,
+                           unsigned* done, int B, int S, cudaStream_t st) {
+  const int grid1 = B > 0 ? grid_for(B * TXF_QUARTERS, 128) : 1;
+  const int seed_words = slot ? S * (int)(sizeof(Acc) / sizeof(int32_t)) : 0;
+  txf_verify_kernel<<<grid1, 128, 0, st>>>(
+      s_nib, h_nib, val_idx, tables, quarter_tables, n_vals, base_quarters,
+      pre_ok, points, B, slot ? reinterpret_cast<int32_t*>(acc) : nullptr,
+      reinterpret_cast<const int32_t*>(prior), seed_words, done);
+  const int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  txf_verify_encode_kernel<Acc><<<B > 0 ? grid_for(B, 128) : 1, 128, 0, st>>>(
+      points, r_y, r_sign, pre_ok, out, B, slot, val_idx, powers, n_vals, acc,
+      quorum, words, maj, done, S);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 int txf_set_base_table(const int32_t* host_table) {
@@ -328,15 +425,50 @@ int txf_verify(const uint8_t* s_nib, const uint8_t* h_nib,
                const uint8_t* r_sign, const uint8_t* pre_ok, int32_t* points,
                int32_t* out, int B, void* stream) {
   if (B <= 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  txf_verify_kernel<<<grid_for(B * TXF_QUARTERS, 128), 128, 0, st>>>(
+  return verify_launches<int32_t>(
       s_nib, h_nib, val_idx, tables, quarter_tables, n_vals, base_quarters,
-      pre_ok, points, B);
-  const int rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  txf_verify_encode_kernel<<<grid_for(B, 128), 128, 0, st>>>(
-      points, r_y, r_sign, pre_ok, out, B);
-  return (int)cudaGetLastError();
+      r_y, r_sign, pre_ok, points, out, nullptr, nullptr, nullptr, 0, nullptr,
+      nullptr, nullptr, nullptr, B, 0, (cudaStream_t)stream);
+}
+
+// The fused step: verify and tally in two launches. With prior and maj
+// (and done, a zeroed-by-launch-1 unsigned of the call's scratch) the
+// quorum form: acc is the packed stake segment [S], maj the maj23
+// segment. With prior, maj and done all nullptr the partial form of a
+// shard: acc [S] ends holding the shard's partial stake.
+int txf_verify_tally(const uint8_t* s_nib, const uint8_t* h_nib,
+                     const int32_t* val_idx, const int32_t* tables,
+                     const int32_t* quarter_tables, int n_vals,
+                     const int32_t* base_quarters, const uint8_t* r_y,
+                     const uint8_t* r_sign, const uint8_t* pre_ok,
+                     int32_t* points, int32_t* out, const int32_t* slot,
+                     const int32_t* powers, const int32_t* prior, int quorum,
+                     int32_t* acc, int32_t* maj, unsigned* done, int B, int S,
+                     void* stream) {
+  return verify_launches<int32_t>(
+      s_nib, h_nib, val_idx, tables, quarter_tables, n_vals, base_quarters,
+      r_y, r_sign, pre_ok, points, out, slot, powers, prior, (int32_t)quorum,
+      acc, nullptr, maj, done, B, S, (cudaStream_t)stream);
+}
+
+// The int64 form: acc an int64 [S] (the call's scratch in the quorum
+// form, whose last block writes each sum into words, the packed stake
+// segment of 2S int32 words; the shard's int64 partial in the partial
+// form, words nullptr).
+int txf_verify_tally64(const uint8_t* s_nib, const uint8_t* h_nib,
+                       const int32_t* val_idx, const int32_t* tables,
+                       const int32_t* quarter_tables, int n_vals,
+                       const int32_t* base_quarters, const uint8_t* r_y,
+                       const uint8_t* r_sign, const uint8_t* pre_ok,
+                       int32_t* points, int32_t* out, const int32_t* slot,
+                       const int64_t* powers, const int64_t* prior,
+                       long long quorum, int64_t* acc, int32_t* words,
+                       int32_t* maj, unsigned* done, int B, int S,
+                       void* stream) {
+  return verify_launches<int64_t>(
+      s_nib, h_nib, val_idx, tables, quarter_tables, n_vals, base_quarters,
+      r_y, r_sign, pre_ok, points, out, slot, powers, prior, (int64_t)quorum,
+      acc, words, maj, done, B, S, (cudaStream_t)stream);
 }
 
 int txf_verify_tables(const uint8_t* s_nib, const uint8_t* h_nib,

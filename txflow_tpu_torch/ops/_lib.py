@@ -55,6 +55,10 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _VERIFY_FNS = {
     "txf_set_base_table": [_P],
     "txf_verify": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P],
+    "txf_verify_tally": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                         _P, _P, _P, _I, _P, _P, _P, _I, _I, _P],
+    "txf_verify_tally64": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _L, _P, _P, _P, _P, _I, _I, _P],
     "txf_verify_tables": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
     "txf_dsm_encode": [_P, _P, _P, _P, _I, _P, _P, _I, _P],
     "txf_fe_ops": [_P, _P, _P, _I, _P],
@@ -84,11 +88,17 @@ LIBS = {
 # __constant__ memory
 BASE_TABLE_RADIX = {"verify": 25, "verify13": 13}
 
-# kernel -> library
+# kernel -> library. The fused step's entries (txf_verify_tally(64)) count
+# under their own names, by field, width and form: verify[13]_tally[64]
+# (the quorum form, one card) and verify[13]_partial[64] (a shard's
+# partial, on a mesh).
 KERNELS = {"fe_ops": "verify", "dsm_encode": "verify", "verify": "verify",
-           "verify_tables": "verify", "fe13_ops": "verify13",
-           "dsm_encode13": "verify13", "verify13": "verify13",
-           "verify_tables13": "verify13", "tally": "tally", "tally64": "tally",
+           "verify_tables": "verify", "verify_tally": "verify", "verify_tally64": "verify",
+           "verify_partial": "verify", "verify_partial64": "verify",
+           "fe13_ops": "verify13", "dsm_encode13": "verify13", "verify13": "verify13",
+           "verify_tables13": "verify13", "verify13_tally": "verify13",
+           "verify13_tally64": "verify13", "verify13_partial": "verify13",
+           "verify13_partial64": "verify13", "tally": "tally", "tally64": "tally",
            "tally_partial": "tally", "tally_partial64": "tally",
            "reduce_quorum": "tally", "reduce_quorum64": "tally", "ring_add": "tally"}
 

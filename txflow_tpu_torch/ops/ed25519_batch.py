@@ -292,19 +292,12 @@ def verify_kernel_gather_plain(
     return out
 
 
-def verify_into(out, s_nibbles, h_nibbles, val_idx, tables, quarter_tables, r_y, r_sign,
-                pre_ok, fe_radix: int = 25):
-    """Launch the four-lane CUDA verify kernel of the ``fe_radix`` field's
-    library writing int32 0/1 validity into ``out`` (an int32 [B] CUDA
-    tensor, e.g. the head of the packed readback). ``tables`` int32
-    [V, 16, 4, NLIMB] and ``quarter_tables`` int32 [V, 3, 16, 4, NLIMB]
-    are an epoch's (``EpochTables``); the base point's quarter tables are
-    the card's cached copy (``curve.device_base_quarters``). One call is
-    two kernel launches (``txf_verify_kernel``, then
-    ``txf_verify_encode_kernel``), counted as one in ``_lib.launches``."""
-    F = field.ops(fe_radix)
+def _verify_specs(s_nibbles, h_nibbles, val_idx, tables, quarter_tables, r_y, r_sign, pre_ok,
+                  F) -> list:
+    """The ``check_all`` specs of the four-lane verify's inputs (``F`` the
+    field's module)."""
     n = s_nibbles.shape[0]
-    _lib.check_all(
+    return [
         (s_nibbles, torch.uint8, (n, curve.NWINDOWS), "s_nibbles"),
         (h_nibbles, torch.uint8, (n, curve.NWINDOWS), "h_nibbles"),
         (val_idx, torch.int32, (n,), "val_idx"),
@@ -314,8 +307,25 @@ def verify_into(out, s_nibbles, h_nibbles, val_idx, tables, quarter_tables, r_y,
         (r_y, torch.uint8, (n, 32), "r_y"),
         (r_sign, torch.uint8, (n,), "r_sign"),
         (pre_ok, torch.bool, (n,), "pre_ok"),
-        (out, torch.int32, (n,), "out"),
-    )
+    ]
+
+
+def verify_into(out, s_nibbles, h_nibbles, val_idx, tables, quarter_tables, r_y, r_sign,
+                pre_ok, fe_radix: int = 25):
+    """Launch the four-lane CUDA verify kernel of the ``fe_radix`` field's
+    library writing int32 0/1 validity into ``out`` (an int32 [B] CUDA
+    tensor). ``tables`` int32 [V, 16, 4, NLIMB] and ``quarter_tables``
+    int32 [V, 3, 16, 4, NLIMB] are an epoch's (``EpochTables``); the base
+    point's quarter tables are the card's cached copy
+    (``curve.device_base_quarters``). One call is two kernel launches
+    (``txf_verify_kernel``, then ``txf_verify_encode_kernel``), counted as
+    one in ``_lib.launches``. The verify alone: the committee path (K6);
+    the served step carries its tally in the same launches
+    (``verify_tally_into``)."""
+    F = field.ops(fe_radix)
+    n = s_nibbles.shape[0]
+    _lib.check_all(*_verify_specs(s_nibbles, h_nibbles, val_idx, tables, quarter_tables, r_y,
+                                  r_sign, pre_ok, F), (out, torch.int32, (n,), "out"))
     if tables.shape[0] == 0:
         raise ValueError("tables: empty validator set")
     base = curve.device_base_quarters(out.device, fe_radix)
@@ -327,6 +337,63 @@ def verify_into(out, s_nibbles, h_nibbles, val_idx, tables, quarter_tables, r_y,
         base.data_ptr(), r_y.data_ptr(), r_sign.data_ptr(), pre_ok.data_ptr(),
         points.data_ptr(), out.data_ptr(), n,
     )
+
+
+def verify_tally_into(packed, s_nibbles, h_nibbles, val_idx, tables, quarter_tables, r_y,
+                      r_sign, pre_ok, tx_slot, powers, prior=None, quorum: int = 0,
+                      partial=None, fe_radix: int = 25):
+    """The fused step on a card: the four-lane verify of ``verify_into``
+    writing the head of ``packed`` (int32 ``[valid (B) | stake (S, or 2S
+    int64 words) | maj23 (S)]``), whose encode launch also tallies each
+    valid row's power (``powers[clamp(val_idx)]``, int32 or int64 [V], V
+    the tables' count) into its ``tx_slot`` (slots outside [0, S) add
+    nothing). One ctypes call, two kernel launches (``txf_verify_tally``,
+    or ``txf_verify_tally64`` for int64 powers), counted under
+    ``verify[13]_tally[64]`` or ``verify[13]_partial[64]``.
+
+    The quorum form (``partial`` None): the sums start at ``prior`` and
+    the launch's last block writes the stake and maj23 segments of
+    ``packed``. The partial form: ``partial`` [S] of the powers' dtype
+    starts at 0 and ends holding the shard's sums; only the head of
+    ``packed`` is written. Scratch (the rows' points, the int64 sums, the
+    call's completion counter) is one allocation per call."""
+    F = field.ops(fe_radix)
+    n, wide = s_nibbles.shape[0], powers.dtype == torch.int64
+    acc_t = torch.int64 if wide else torch.int32
+    quorum_form = partial is None
+    s = (prior if quorum_form else partial).shape[0]
+    specs = _verify_specs(s_nibbles, h_nibbles, val_idx, tables, quarter_tables, r_y, r_sign,
+                          pre_ok, F)
+    specs += [(packed, torch.int32, (n + (3 if wide else 2) * s,), "packed"),
+              (tx_slot, torch.int32, (n,), "tx_slot"),
+              (powers, acc_t, (tables.shape[0],), "powers"),
+              (prior, acc_t, (s,), "prior") if quorum_form else (partial, acc_t, (s,), "partial")]
+    _lib.check_all(*specs)
+    if tables.shape[0] == 0:
+        raise ValueError("tables: empty validator set")
+    base = curve.device_base_quarters(packed.device, fe_radix)
+    # one scratch: the points [n, 3, NLIMB] (an even count of words), the
+    # int64 sums of the wide quorum form (8-byte aligned after them), the
+    # completion counter
+    pts = n * 3 * F.NLIMB
+    sums = 2 * s if wide and quorum_form else 0
+    scratch = torch.empty((pts + sums + 2,), dtype=torch.int32, device=packed.device)
+    sp, pp = scratch.data_ptr(), packed.data_ptr()
+    stake = pp + 4 * n  # the packed segments, by byte offset
+    maj = stake + 4 * (2 * s if wide else s)
+    head = (s_nibbles.data_ptr(), h_nibbles.data_ptr(), val_idx.data_ptr(), tables.data_ptr(),
+            quarter_tables.data_ptr(), tables.shape[0], base.data_ptr(), r_y.data_ptr(),
+            r_sign.data_ptr(), pre_ok.data_ptr(), sp, pp, tx_slot.data_ptr(), powers.data_ptr())
+    if quorum_form:  # the int64 sums in the scratch after the points; the counter last
+        form, prior_p, maj_p, done = "_tally", prior.data_ptr(), maj, sp + 4 * (pts + sums)
+        acc, words = (sp + 4 * pts, stake) if wide else (stake, None)
+    else:
+        form, prior_p, maj_p, done = "_partial", None, None, None
+        acc, words = partial.data_ptr(), None
+    tail = (acc, words, maj_p, done) if wide else (acc, maj_p, done)
+    _lib.launch("verify" + F.TAG + form + ("64" if wide else ""),
+                "txf_verify_tally64" if wide else "txf_verify_tally", packed, n + s, *head,
+                prior_p, int(quorum), *tail, n, s)
 
 
 def verify_kernel_gather(

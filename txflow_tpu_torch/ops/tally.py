@@ -5,12 +5,18 @@ Counterpart of ``txflow_tpu/ops/tally.py``. One step verifies a compact
 batch and adds each valid vote's power into its tx slot on top of the
 slot's prior stake, then compares with the quorum; the three results come
 back packed in one int32 vector ``[valid (B) | stake (S) | maj23 (S)]``
-so the host reads the device once. Over a mesh (``parallel/mesh.py``)
-each shard tallies its votes into a partial (``tally_partial``), the
-partials cross cards, and ``reduce_quorum`` adds them and the prior and
-compares -- the psum of the JAX step; ``ring_add`` is one hop of the
-ring form. ``verify_and_tally`` is the unfused composition of any verify
-kernel with the tally, on one device or over a mesh.
+so the host reads the device once. On a card the tally has no launch of
+its own: it rides in the verify's encode launch
+(``ed25519_batch.verify_tally_into``, ``csrc/verify.cu``), one ctypes
+call and two kernel launches a step. Over a mesh (``parallel/mesh.py``)
+each shard's fused launch leaves its partial (``compact_step_partial``),
+the partials cross to the mesh's first card, and one ``reduce_quorum``
+adds them and the prior and compares -- the psum of the JAX step;
+``ring_add`` is one hop of the ring form. The standalone kernels
+(``tally_into``, ``tally_partial``) stay as the counterparts of the fused
+tally and the yardstick of its cost; no served step launches them.
+``verify_and_tally`` is the unfused composition of any verify kernel with
+the tally, on one device or over a mesh.
 
 Voting power is int32 on the device, as in the JAX package: with per-batch
 dedup, per-slot batch stake and prior stake are each at most the total
@@ -78,11 +84,13 @@ def tally_plain(valid, tx_slot, val_idx, powers, prior, quorum: int):
 
 
 def tally_into(stake, maj, valid, tx_slot, val_idx, powers, prior, quorum: int):
-    """Launch the CUDA tally kernel: stake = prior + segment-sum of valid
-    votes' power, maj = stake >= quorum (int32 CUDA tensors; ``valid`` is
-    the int32 validity the verify kernel wrote). With int64 ``powers`` and
-    ``prior`` the int64 kernel runs and ``stake`` is the int32 [2S] word
-    segment of the packed readback."""
+    """Launch the standalone CUDA tally kernel: stake = prior +
+    segment-sum of valid votes' power, maj = stake >= quorum (int32 CUDA
+    tensors; ``valid`` is the int32 validity the verify kernel wrote).
+    With int64 ``powers`` and ``prior`` the int64 kernel runs and
+    ``stake`` is the int32 [2S] word segment of the packed readback. The
+    counterpart of the tally that ``compact_step_packed`` carries in its
+    verify launch; no served step calls it."""
     b, s = valid.shape[0], prior.shape[0]
     wide = is_wide(powers)
     acc_t = torch.int64 if wide else torch.int32
@@ -113,35 +121,42 @@ def tally_into(stake, maj, valid, tx_slot, val_idx, powers, prior, quorum: int):
     )
 
 
+def compact_step_packed_plain(
+    s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables, quarter_tables, powers,
+    prior_stake, quorum: int, fe_radix: int = 25,
+) -> torch.Tensor:
+    """Plain version of the fused step, on the inputs' device: the packed
+    ``[valid | stake | maj23]`` of the plain verify and the plain tally."""
+    valid = ed25519_batch.verify_kernel_gather_plain(
+        s_nib, h_nib, val_idx, tables, quarter_tables, r_y, r_sign, pre_ok, fe_radix=fe_radix,
+    )
+    stake, maj = tally_plain(valid, tx_slot, val_idx, powers, prior_stake, quorum)
+    return torch.cat([valid.to(torch.int32), stake.view(torch.int32), maj])
+
+
 def compact_step_packed(
     s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables, quarter_tables, powers,
     prior_stake, quorum: int, fe_radix: int = 25,
 ) -> torch.Tensor:
     """The fused aggregation step: int32 packed ``[valid | stake | maj23]``
     (``packed_size``: B + 2S words, or B + 3S in the int64 form that int64
-    powers and prior select). Two kernel launches on a card (the four-lane
-    verify over the ``fe_radix`` field and the epoch's ``tables`` and
-    ``quarter_tables``, then tally, both writing into one buffer); the
-    plain versions for CPU tensors."""
+    powers and prior select). On a card one ctypes call and two kernel
+    launches (the four-lane verify over the ``fe_radix`` field and the
+    epoch's ``tables`` and ``quarter_tables``, its encode launch carrying
+    the tally into the same buffer: ``verify[13]_tally[64]`` in
+    ``_lib.launches``; ``powers`` one per table row); the plain versions
+    for CPU tensors."""
     b, s = s_nib.shape[0], prior_stake.shape[0]
     wide = is_wide(powers)
     if s_nib.device.type == "cpu":
-        valid = ed25519_batch.verify_kernel_gather_plain(
-            s_nib, h_nib, val_idx, tables, quarter_tables, r_y, r_sign, pre_ok,
-            fe_radix=fe_radix,
+        return compact_step_packed_plain(
+            s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables, quarter_tables,
+            powers, prior_stake, quorum, fe_radix=fe_radix,
         )
-        stake, maj = tally_plain(valid, tx_slot, val_idx, powers, prior_stake, quorum)
-        return torch.cat([valid.to(torch.int32), stake.view(torch.int32), maj])
     packed = torch.empty((packed_size(b, s, wide),), dtype=torch.int32, device=s_nib.device)
-    valid = packed[:b]
-    ed25519_batch.verify_into(
-        valid, s_nib, h_nib, val_idx, tables, quarter_tables, r_y, r_sign, pre_ok,
-        fe_radix=fe_radix,
-    )
-    sw = 2 * s if wide else s
-    tally_into(
-        packed[b : b + sw], packed[b + sw :], valid, tx_slot, val_idx, powers,
-        prior_stake, quorum,
+    ed25519_batch.verify_tally_into(
+        packed, s_nib, h_nib, val_idx, tables, quarter_tables, r_y, r_sign, pre_ok, tx_slot,
+        powers, prior_stake, quorum, fe_radix=fe_radix,
     )
     return packed
 
@@ -276,13 +291,16 @@ def ring_add(acc, b) -> torch.Tensor:
 
 def compact_step_partial(
     s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables, quarter_tables, powers,
-    n_slots: int, fe_radix: int = 25,
+    n_slots: int, fe_radix: int = 25, partial=None,
 ):
     """One shard's half of the sharded fused step: (packed int32
     [``packed_size``] with ``valid`` written into its head and the
-    stake/maj23 segments left for ``reduce_quorum``, partial [S] of the
-    powers' dtype). Two launches on a card (verify over the ``fe_radix``
-    field, partial tally); the plain versions on the CPU."""
+    stake/maj23 segments left for the psum, partial [S] of the powers'
+    dtype). ``partial`` is where the partial goes (e.g. the shard's row of
+    the reduce's [n, S] buffer), else a new tensor. On a card one ctypes
+    call and two kernel launches (the verify over the ``fe_radix`` field,
+    its encode launch carrying the partial tally:
+    ``verify[13]_partial[64]``); the plain versions on the CPU."""
     b = s_nib.shape[0]
     size = packed_size(b, n_slots, is_wide(powers))
     if s_nib.device.type == "cpu":
@@ -291,14 +309,16 @@ def compact_step_partial(
             fe_radix=fe_radix,
         ).to(torch.int32)
         packed = torch.cat([valid, torch.zeros(size - b, dtype=torch.int32)])
-        return packed, tally_partial_plain(valid, tx_slot, val_idx, powers, n_slots)
+        part = tally_partial_plain(valid, tx_slot, val_idx, powers, n_slots)
+        return packed, part if partial is None else partial.copy_(part)
     packed = torch.empty((size,), dtype=torch.int32, device=s_nib.device)
-    valid = packed[:b]
-    ed25519_batch.verify_into(
-        valid, s_nib, h_nib, val_idx, tables, quarter_tables, r_y, r_sign, pre_ok,
-        fe_radix=fe_radix,
+    if partial is None:
+        partial = torch.empty((n_slots,), dtype=powers.dtype, device=s_nib.device)
+    ed25519_batch.verify_tally_into(
+        packed, s_nib, h_nib, val_idx, tables, quarter_tables, r_y, r_sign, pre_ok, tx_slot,
+        powers, partial=partial, fe_radix=fe_radix,
     )
-    return packed, tally_partial(valid, tx_slot, val_idx, powers, n_slots)
+    return packed, partial
 
 
 def verify_and_tally(verify_fn, mesh=None):
@@ -311,27 +331,24 @@ def verify_and_tally(verify_fn, mesh=None):
     is split across its shards and each result is a per-shard list (valid
     per shard, stake and maj23 the global ones on every shard)."""
 
-    def one(verify_inputs, tx_slot, power, prior_stake):
+    def one(verify_inputs, tx_slot, power, n_slots):
         valid = verify_fn(*verify_inputs)
-        partial = tally_partial(
-            valid.to(torch.int32), tx_slot, None, power, prior_stake.shape[0]
-        )
+        partial = tally_partial(valid.to(torch.int32), tx_slot, None, power, n_slots)
         return valid, partial
 
     def f(verify_inputs, tx_slot, power, prior_stake, quorum):
+        s = prior_stake.shape[0]
         if mesh is None:
-            valid, partial = one(verify_inputs, tx_slot, power, prior_stake)
+            valid, partial = one(verify_inputs, tx_slot, power, s)
             stake, maj = reduce_quorum(partial[None], prior_stake, quorum)
             return valid, stake, maj.to(torch.bool)
         from ..parallel.mesh import psum_quorum
 
         ins = [mesh.shard(x) for x in (*verify_inputs, tx_slot, power)]
-        priors = mesh.replicate(prior_stake)
         valid, partials = zip(*(
-            one([x[i] for x in ins[:-2]], ins[-2][i], ins[-1][i], priors[i])
-            for i in range(mesh.size)
+            one([x[i] for x in ins[:-2]], ins[-2][i], ins[-1][i], s) for i in range(mesh.size)
         ))
-        stake, maj = psum_quorum(mesh, list(partials), priors, quorum)
+        stake, maj = psum_quorum(mesh, list(partials), prior_stake, quorum)
         return list(valid), stake, [m.to(torch.bool) for m in maj]
 
     return f

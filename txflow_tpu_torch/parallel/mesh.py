@@ -2,13 +2,18 @@
 
 Counterpart of ``txflow_tpu/parallel/mesh.py``. The vote axis of a padded
 batch is split into equal slices, one per shard; per-epoch constants
-(window tables and their quarter tables, powers) and the prior stake are
-replicated on every shard's device. Each shard runs the verify kernel and
-a partial tally on its device's current stream; then every shard gathers
-all partials by peer copies and adds them with the prior
-(``txf_reduce_quorum``), so each holds the identical global stake and
-maj23 -- the JAX step's ``psum``. ``ring_tally`` is the explicit ring
-instead: n-1 hops of copy-then-add.
+(window tables and their quarter tables, powers) are replicated on every
+shard's device, the prior stake goes to the mesh's first card (to every
+card in the ring step). Each shard runs the fused verify +
+partial tally (one ctypes call, two kernel launches) on its device's
+current stream, its partial written into its row of an [n, S] buffer on
+the mesh's first card when the shard is on that card; the other
+partials cross to that card by peer copies, one ``txf_reduce_quorum``
+there adds them and the prior and compares, and the result (the packed
+``[stake | maj23]`` tail) is copied into every other shard's output, so
+each holds the identical global stake and maj23 -- the JAX step's
+``psum``: one reduce a step and at most 2(n-1) copies. ``ring_tally`` is
+the explicit ring instead: n-1 hops of copy-then-add.
 
 One process drives all the cards: a function here launches on each card
 in turn and returns at once, so the cards run side by side. Work on two
@@ -36,6 +41,11 @@ import torch
 from ..ops import ed25519_batch, field, tally
 
 VOTE_AXIS = "votes"
+
+# tensor copies the psum has issued, by kind: a partial into the reduce's
+# buffer, the reduced tail into another shard's output (the counterpart of
+# ops/_lib.launches for the psum's data movement)
+copies = {"partial": 0, "tail": 0}
 
 
 @dataclass(frozen=True)
@@ -74,6 +84,13 @@ class Mesh:
             c.to(d, non_blocking=True)
             for c, d in zip(x.split(x.shape[0] // self.size), self.devices)
         ]
+
+    def first(self, x):
+        """``x`` on the first shard's device (a tensor moved there, or a
+        per-shard list's first entry): what only that device reads."""
+        if isinstance(x, (list, tuple)):
+            return self.shard(x)[0]
+        return x.to(self.devices[0], non_blocking=True)
 
     def replicate(self, x) -> list:
         """``x`` on every shard's device, one copy per distinct device; a
@@ -132,24 +149,47 @@ def _peer(t, device):
     return t.to(device, non_blocking=True)
 
 
-def psum_quorum(mesh: Mesh, partials: list, priors: list, quorum: int, outs=None):
+def psum_quorum(mesh: Mesh, partials: list, prior, quorum: int, outs=None, parts=None):
     """All-reduce of per-shard partial stake [S] (int32, or int64 for a
-    set of total power >= 2^30) plus the prior, and the quorum compare, on
-    every shard: shard i copies every partial into an [n, S] buffer on its
-    device and runs ``reduce_quorum`` there. ``outs`` gives per shard the
-    (stake, maj23) destinations, e.g. the segments of its packed output.
-    Returns (stakes, majs), per-shard lists."""
+    set of total power >= 2^30) plus the prior, and the quorum compare,
+    once for the mesh: the partials go into the rows of ``parts`` (an
+    [n, S] buffer on the mesh's first card, new when None; a partial that
+    already is its row is not copied, the others cross by peer copies
+    ordered after the kernels that wrote them), one ``reduce_quorum``
+    runs there with ``prior`` ([S]: a tensor, or a per-shard list, of
+    which only that card reads, ``Mesh.first``), and each other shard
+    gets a copy of the result. ``outs`` gives per shard the int32 tail ``[stake (S, or 2S
+    words) | maj23 (S)]`` of its packed output: the reduce writes shard
+    0's, then one copy into each other shard's. Without ``outs`` the
+    result is new tensors, one pair per distinct device. Returns
+    (stakes, majs), per-shard lists."""
     n, s = mesh.size, partials[0].shape[0]
-    stakes, majs = [], []
-    for i, dev in enumerate(mesh.devices):
-        parts = torch.empty((n, s), dtype=partials[0].dtype, device=dev)
-        for j, p in enumerate(partials):
-            _after_producer(p, dev)
-            parts[j].copy_(p, non_blocking=True)
-        st, mj = tally.reduce_quorum(parts, priors[i], quorum, *(outs[i] if outs else (None, None)))
-        stakes.append(st)
-        majs.append(mj)
-    return stakes, majs
+    dev0, prior = mesh.devices[0], mesh.first(prior)
+    if parts is None:
+        parts = torch.empty((n, s), dtype=partials[0].dtype, device=dev0)
+    for j, p in enumerate(partials):
+        row = parts[j]
+        if p.device == dev0 and p.data_ptr() == row.data_ptr():
+            continue
+        _after_producer(p, dev0)
+        row.copy_(p, non_blocking=True)
+        copies["partial"] += 1
+    if outs is None:
+        st, mj = tally.reduce_quorum(parts, prior, quorum)
+        on = {dev0: (st, mj)}
+        for d in mesh.devices:
+            if d not in on:
+                _after_producer(st, d)
+                on[d] = (st.to(d, non_blocking=True), mj.to(d, non_blocking=True))
+        return [on[d][0] for d in mesh.devices], [on[d][1] for d in mesh.devices]
+    sw = outs[0].shape[0] - s
+    tail = outs[0]
+    tally.reduce_quorum(parts, prior, quorum, tail[:sw], tail[sw:])
+    for out, d in zip(outs[1:], mesh.devices[1:]):
+        _after_producer(tail, d)
+        out.copy_(tail, non_blocking=True)
+        copies["tail"] += 1
+    return [o[:sw] for o in outs], [o[sw:] for o in outs]
 
 
 def ring_tally(mesh: Mesh, partials: list) -> list:
@@ -172,24 +212,43 @@ def ring_tally(mesh: Mesh, partials: list) -> list:
     return totals
 
 
-def _step_partials(mesh, fe_radix, s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot,
-                   tables, quarter_tables, powers, prior_stake):
+def _step_partials(mesh, fe_radix, s, s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot,
+                   tables, quarter_tables, powers, parts=None):
     """Shard the per-vote inputs, replicate the constants, and run each
-    shard's verify (over the ``fe_radix`` field) + partial tally. Returns
-    (packed, partials, priors), per-shard lists; every host->device copy
-    is issued before any launch."""
+    shard's fused verify (over the ``fe_radix`` field) + partial tally
+    over ``s`` slots, the partial of a shard on the mesh's first card
+    written into its row of ``parts`` when given. Returns (packed,
+    partials), per-shard lists; every host->device copy is issued before
+    any launch."""
     vote = [mesh.shard(x) for x in (s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot)]
-    tables, quarters, powers, priors = (
-        mesh.replicate(x) for x in (tables, quarter_tables, powers, prior_stake))
-    s = priors[0].shape[0]
+    tables, quarters, powers = (
+        mesh.replicate(x) for x in (tables, quarter_tables, powers))
     packed, partials = [], []
-    for i in range(mesh.size):
+    for i, d in enumerate(mesh.devices):
         p, part = tally.compact_step_partial(
-            *(v[i] for v in vote), tables[i], quarters[i], powers[i], s, fe_radix=fe_radix
+            *(v[i] for v in vote), tables[i], quarters[i], powers[i], s, fe_radix=fe_radix,
+            partial=parts[i] if parts is not None and d == parts.device else None,
         )
         packed.append(p)
         partials.append(part)
-    return packed, partials, priors
+    return packed, partials
+
+
+def _psum_step(mesh, fe_radix, s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables,
+               quarter_tables, powers, prior_stake, quorum):
+    """One sharded step with the psum tally: (per-shard packed outputs,
+    rows a shard, slots)."""
+    prior0 = mesh.first(prior_stake)
+    s, wide = prior0.shape[0], tally.is_wide(powers)
+    parts = torch.empty((mesh.size, s), dtype=torch.int64 if wide else torch.int32,
+                        device=mesh.devices[0])
+    packed, partials = _step_partials(
+        mesh, fe_radix, s, s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables,
+        quarter_tables, powers, parts,
+    )
+    bs = packed[0].shape[0] - tally.packed_size(0, s, wide)
+    psum_quorum(mesh, partials, prior0, quorum, outs=[p[bs:] for p in packed], parts=parts)
+    return packed, bs, s
 
 
 def sharded_compact_step_packed(mesh: Mesh, fe_radix: int | None = None):
@@ -202,22 +261,14 @@ def sharded_compact_step_packed(mesh: Mesh, fe_radix: int | None = None):
     ``[B/n + 2S]`` (``to_host`` gives ``[B + 2Sn]``), or ``[B/n + 3S]`` in
     the int64 form that int64 powers and prior select
     (``ops.tally.packed_stake``). Per-vote inputs are full-batch tensors
-    (B divisible by n) or per-shard lists; tables, quarter tables, powers
-    and prior are tensors to replicate or per-shard lists."""
+    (B divisible by n) or per-shard lists; tables, quarter tables and
+    powers are tensors to replicate or per-shard lists; the prior a
+    tensor or a per-shard list, of which only the mesh's first card reads
+    (``Mesh.first``: the reduce runs there)."""
     fe_radix = field.resolve(fe_radix)
 
-    def f(s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables, quarter_tables, powers,
-          prior_stake, quorum):
-        packed, partials, priors = _step_partials(
-            mesh, fe_radix, s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables,
-            quarter_tables, powers, prior_stake,
-        )
-        s = priors[0].shape[0]
-        sw = 2 * s if tally.is_wide(powers) else s
-        bs = packed[0].shape[0] - sw - s
-        psum_quorum(mesh, partials, priors, quorum,
-                    outs=[(p[bs : bs + sw], p[bs + sw :]) for p in packed])
-        return packed
+    def f(*args):
+        return _psum_step(mesh, fe_radix, *args)[0]
 
     return f
 
@@ -227,14 +278,11 @@ def sharded_compact_step(mesh: Mesh, fe_radix: int | None = None):
     per shard [B/n], stake [S] per shard (int32, or int64 in the wide
     form), maj23 bool [S] per shard), the stake and maj23 lists holding
     the same global values."""
-    packed_fn = sharded_compact_step_packed(mesh, fe_radix)
+    fe_radix = field.resolve(fe_radix)
 
     def f(*args):
-        packed = packed_fn(*args)
-        prior, wide = args[10], tally.is_wide(args[9])
-        s = (prior[0] if isinstance(prior, (list, tuple)) else prior).shape[0]
-        bs = packed[0].shape[0] - tally.packed_size(0, s, wide)
-        unpacked = [tally.packed_stake(p, bs, s, wide) for p in packed]
+        packed, bs, s = _psum_step(mesh, fe_radix, *args)
+        unpacked = [tally.packed_stake(p, bs, s, tally.is_wide(args[9])) for p in packed]
         return ([p[:bs].to(torch.bool) for p in packed], [st for st, _ in unpacked],
                 [mj.to(torch.bool) for _, mj in unpacked])
 
@@ -252,11 +300,12 @@ def sharded_ring_step(mesh: Mesh, fe_radix: int | None = None):
 
     def f(s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables, quarter_tables, powers,
           prior_stake, quorum):
-        packed, partials, priors = _step_partials(
-            mesh, fe_radix, s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables,
-            quarter_tables, powers, prior_stake,
-        )
+        priors = mesh.replicate(prior_stake)
         s = priors[0].shape[0]
+        packed, partials = _step_partials(
+            mesh, fe_radix, s, s_nib, h_nib, val_idx, r_y, r_sign, pre_ok, tx_slot, tables,
+            quarter_tables, powers,
+        )
         totals = ring_tally(mesh, partials)
         stakes, majs = zip(*(
             tally.reduce_quorum(t[None], pr, quorum) for t, pr in zip(totals, priors)
