@@ -86,19 +86,24 @@
    1000, 1024 and 16384 rows of the K3 batch, each rung holding rows that
    failed their pre-checks, an off-curve key's row with its pre-check
    forced true (identity tables), R = 1 and the non-canonical R = p + 1,
-   and rows with an all-zero scalar quarter; then an A/B in turns of K3
-   against K5's one-lane body over the same 16384 rows (tables gathered
-   for K5) in both fields, beside both kernels' ptxas registers; in phase
-   4 an A/B of K6 at rung 8 against K5 on the same 8 rows; in phase 5 the
-   in-place ring hop (txf_add) and torch.add in turns, 500 launches a
-   window, and the host launch path split into its pieces.
+   and rows with an all-zero scalar quarter. Then K5 (txf_verify_tables:
+   four lanes a row, one coordinate of the accumulator a lane) on the
+   same rows at 64 and 16384 rows in both fields (tables gathered per
+   vote): bit-exact against its plain version, its mask equal to K3's,
+   and an A/B in turns of K3 against K5 at each, beside both kernels'
+   ptxas registers and spill bytes; in phase 4 an A/B of K6 at rung 8
+   against K5 on the same 8 rows (both fields); in phase 5 the in-place
+   ring hop (txf_add) and torch.add in turns, 500 launches a window, and
+   the host launch path split into its pieces. The K2 and K5 rows carry
+   the unchanged one-lane bound and, beside it, the products the four
+   lanes issue and a lane's chain (COORD_NOTE).
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Any failure raises (exit code != 0), and
 without CUDA the script exits 1 before printing any result.
 
-``--cross-card`` runs only the per-card check: each card keeps its own
-copy of the verify library's __constant__ base table, so K1, K2 and K3
+``--cross-card`` runs only the per-card check: each card gets its own
+copy of the base tables (curve.device_base_quarters), so K1, K2 and K3
 run on every visible card, the last card first, each held against its
 plain version on the CPU and K3 also against the golden model.
 
@@ -244,6 +249,14 @@ MESH_BYZ_P = (0.25, 0.25, 0.2, 0.15, 0.1, 0.05)
 # row's ms covers both
 VERIFY_LAUNCH_NOTE = {"kernel_launches_per_count": 2,
                       "launch_note": "one counted launch = txf_verify_kernel + txf_verify_encode_kernel"}
+# K5 and K2 rows (the coordinate split): one counted launch is two kernel
+# launches; the bound keeps the one-lane count of products a signature,
+# and beside it stand the products the four lanes issue and a lane's chain
+COORD_NOTE = {"kernel_launches_per_count": 2,
+              "launch_note": "one counted launch = txf_coord_dsm_kernel + an encode kernel",
+              "bound_muls_per_signature": curve.MULS_PER_DSM_ENCODE,
+              "issued_muls_per_signature": curve.MULS_PER_COORD_DSM_ENCODE,
+              "lane_chain_muls": curve.MULS_CHAIN_COORD_DSM_ENCODE}
 # lanes phase: every 8th tx of the slice cell carries the fee prefix (512
 # txs, 8192 votes in the priority lane); the feed rate is about half the
 # threaded slice's backlog rate (21,835 votes/s, NVIDIA H100 80GB HBM3 at
@@ -502,14 +515,15 @@ def kernel_phase(card: dict, corpus: Corpus, dev) -> tuple[list[dict], dict]:
     require(bool((k2[0] == p2[0]).all() and (k2[1] == p2[1]).all()), "K2 dsm_encode kernel != plain")
     ms = cuda_ms_window(lambda: curve.dsm_encode(s_nib, h_nib, vidx, tables), 10)
     pms = cuda_ms(lambda: curve.dsm_encode_plain(s_nib, h_nib, vidx, tables), 2)
-    bnd, by = bound_ms(card, nbytes(s_nib, h_nib, vidx, tables, *k2),
+    bnd, by = bound_ms(card, nbytes(s_nib, h_nib, vidx, tables, *k2, curve.device_base_quarters(dev)[0]),
                        N_DSM * curve.MULS_PER_DSM_ENCODE * fe.MADS_PER_MUL)
-    rows.append(dict(name="K2 ge25519 double-scalar multiply + encode (dsm_encode kernel alone; runs inside txf_verify on the main path)",
-                     route="cuda", source="txflow_tpu_torch/csrc/ge25519.cuh",
+    rows.append(dict(name="K2 ge25519 double-scalar multiply + encode (dsm_encode kernel alone, four lanes a "
+                          "row by coordinate; the formulas run inside txf_verify on the main path)",
+                     route="cuda", source="txflow_tpu_torch/csrc/ge25519.cuh, txflow_tpu_torch/csrc/verify.cu",
                      replaces="txflow_tpu/ops/curve.py:162", launched_in="txf_verify",
                      max_abs_err=int(max((k2[0] - p2[0]).abs().max(), (k2[1] - p2[1]).abs().max())),
                      ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=None,
-                     shape=f"{N_DSM} pairs"))
+                     shape=f"{N_DSM} pairs", **COORD_NOTE))
     log(f"K2 dsm_encode: bit-exact over {N_DSM} pairs; {ms:.4f} ms (plain {pms:.1f} ms, bound {bnd:.5f} ms by {by})")
 
     # K3 + K4: one MAX_BATCH-vote batch (about 92% votes, 2% duplicates,
@@ -648,6 +662,7 @@ def kernel_phase(card: dict, corpus: Corpus, dev) -> tuple[list[dict], dict]:
 
 
 QUARTER_RUNGS = (8, 64, 1000, 1024, 16384)  # 1000: not a multiple of a block's 32 rows
+K5_RUNGS = (64, MAX_BATCH)  # K5 (coordinate lanes) against its plain version and K3
 
 
 def quarter_checks(card: dict, k3: dict, dev, ptx: dict) -> dict:
@@ -658,10 +673,11 @@ def quarter_checks(card: dict, k3: dict, dev, ptx: dict) -> dict:
     identity tables), the identity rows with R = 1 (valid) and the
     non-canonical R = p + 1 (invalid), a padding row, a duplicate, and a
     row with an all-zero quarter of s and one of h; the larger rungs fill
-    up with the batch's votes. Then the A/B in turns (K3, K5, K5, K3) of
-    the four-lane kernel against K5's one-lane body over the same 16384
-    rows and the same tables, gathered per vote for K5, in both fields,
-    beside both kernels' registers."""
+    up with the batch's votes. Then K5 (txf_verify_tables, the coordinate
+    split) on the same rows and tables, gathered per vote, at K5_RUNGS
+    rows in both fields: bit-exact against its plain version, its mask
+    equal to K3's, and the A/B in turns (K3, K5, K5, K3) of the two
+    four-lane designs, beside both kernels' registers and spill bytes."""
     args25, sp = k3["args"], k3["special"]
     epoch13 = ed25519_batch.EpochTables(k3["keys"], fe_radix=13)
     by_field = {25: args25, 13: (*args25[:3], epoch13.device_tables(dev),
@@ -702,36 +718,50 @@ def quarter_checks(card: dict, k3: dict, dev, ptx: dict) -> dict:
                            "ms": ms})
             log(f"txf_verify radix {r}, {rung} rows: bit-exact with the plain version "
                 f"({int(k.sum())} valid, {int(rows[7].sum())} computed); {ms:.4f} ms")
-    # the A/B: four lanes (K3) against one lane (K5) on the same rows
-    ab = {"rows": MAX_BATCH}
-    names = ("txf_verify_kernel", "txf_verify_encode_kernel<int32>", "txf_verify_tables_kernel")
+    # K5 on the same rows (the coordinate split; tables gathered per vote),
+    # then the A/B in turns: quarters (K3) against coordinates (K5)
+    ab = {}
+    names = ("txf_verify_kernel", "txf_verify_encode_kernel<int32>", "txf_coord_dsm_kernel")
     for r, a in by_field.items():
-        vi = a[2].long().clamp(0, a[3].shape[0] - 1)
-        k5_args = (a[0], a[1], a[3][vi].contiguous(), a[5], a[6], a[7])
-        m3 = ed25519_batch.verify_kernel_gather(*a, fe_radix=r)
-        m5 = ed25519_batch.verify_kernel(*k5_args, fe_radix=r)
-        torch.cuda.synchronize()
-        require(bool((m3 == m5).all()), f"radix {r}: K3 and K5 masks differ")
-        t = []
-        for fn in ("k3", "k5", "k5", "k3"):
-            if fn == "k3":
-                t.append(cuda_ms_window(lambda: ed25519_batch.verify_kernel_gather(*a, fe_radix=r), 10))
-            else:
-                t.append(cuda_ms_window(lambda: ed25519_batch.verify_kernel(*k5_args, fe_radix=r), 10))
+        full = (s_n, h_n, a[2], a[3], a[4], a[5], a[6], ok)
         lib = "verify13" if r == 13 else "verify"
         kr = ptx[lib]["kernels"]
-        ab[f"radix{r}"] = {
-            "k3_four_lanes_ms": [t[0], t[3]], "k5_one_lane_ms": [t[1], t[2]],
-            "k5_over_k3": (t[1] + t[2]) / (t[0] + t[3]),
-            "k3_bound_ms": bound_ms(card, 0, k3["n_ok"] * ed25519_batch.mads_per_signature(r))[0],
-            "k5_bound_ms": bound_ms(card, 0, k3["n_ok"] * ed25519_batch.mads_per_signature(
-                r, four_lanes=False))[0],
-            "registers": {k: kr.get(k, {}).get("registers") for k in names},
-            "stack_bytes": {k: kr.get(k, {}).get("stack_bytes") for k in names},
-            "spill_store_bytes": ptx[lib]["spill_store_bytes"]}
-    log("A/B txf_verify (four lanes) vs txf_verify_tables (one lane) at "
-        f"{MAX_BATCH} rows, in turns: " + json.dumps(ab))
-    return {"quarter_checks": checks, "ab_four_lanes_vs_one": ab}
+        for rung in K5_RUNGS:
+            sub = order[:rung] if rung < MAX_BATCH else torch.arange(MAX_BATCH, device=dev)
+            rows = [full[i][sub] if i not in (3, 4) else full[i] for i in range(8)]
+            vi = rows[2].long().clamp(0, rows[3].shape[0] - 1)
+            k5_args = (rows[0], rows[1], rows[3][vi].contiguous(), rows[5], rows[6], rows[7])
+            m3 = ed25519_batch.verify_kernel_gather(*rows, fe_radix=r)
+            m5 = ed25519_batch.verify_kernel(*k5_args, fe_radix=r)
+            p5 = ed25519_batch.verify_kernel_plain(*k5_args, fe_radix=r)
+            torch.cuda.synchronize()
+            require(bool((m5 == p5).all()), f"txf_verify_tables (radix {r}) != plain at {rung} rows")
+            require(bool((m3 == m5).all()), f"radix {r}, {rung} rows: K3 and K5 masks differ")
+            checks.append({"kernel": "txf_verify_tables", "fe_radix": r, "rows": rung,
+                           "valid": int(m5.sum()), "computed": int(rows[7].sum()),
+                           "max_abs_err": int((m5.int() - p5.int()).abs().max())})
+            t = []
+            for fn in ("k3", "k5", "k5", "k3"):
+                if fn == "k3":
+                    t.append(cuda_ms_window(
+                        lambda: ed25519_batch.verify_kernel_gather(*rows, fe_radix=r), 10))
+                else:
+                    t.append(cuda_ms_window(lambda: ed25519_batch.verify_kernel(*k5_args, fe_radix=r), 10))
+            n_ok = int(rows[7].sum())
+            ab[f"radix{r}_rows{rung}"] = {
+                "k3_quarter_lanes_ms": [t[0], t[3]], "k5_coord_lanes_ms": [t[1], t[2]],
+                "k5_over_k3": (t[1] + t[2]) / (t[0] + t[3]),
+                "k3_bound_ms": bound_ms(card, 0, n_ok * ed25519_batch.mads_per_signature(r))[0],
+                "k5_bound_ms": bound_ms(card, 0, n_ok * ed25519_batch.mads_per_signature(
+                    r, four_lanes=False))[0],
+                "registers": {k: kr.get(k, {}).get("registers") for k in names},
+                "stack_bytes": {k: kr.get(k, {}).get("stack_bytes") for k in names},
+                "spill_bytes": {k: kr.get(k, {}).get("spill_bytes") for k in names}}
+            log(f"txf_verify_tables radix {r}, {rung} rows: bit-exact with the plain version, "
+                f"mask equal to K3's ({int(m5.sum())} valid, {n_ok} computed)")
+    log("A/B txf_verify (quarter lanes) vs txf_verify_tables (coordinate lanes), in turns: "
+        + json.dumps(ab))
+    return {"quarter_checks": checks, "ab_quarters_vs_coordinates": ab}
 
 
 # ---------------------------------------------------------------------------
@@ -1922,7 +1952,7 @@ def k6_rows(card: dict, com: "CommitteeCorpus", dev, fe_radix: int = 25,
         bnd, by = bound_ms(card, nbytes(*args) + nbytes(curve.device_base_quarters(dev, fe_radix))
                            + rung * 4, n_ok * ed25519_batch.mads_per_signature(fe_radix))
         ab = None
-        if rung == 8:  # the A/B in turns (K6, K5, K5, K6): four lanes against one
+        if rung == 8:  # the A/B in turns (K6, K5, K5, K6): quarter lanes against coordinate lanes
             k5_args = (args[0], args[1], tables[args[2].long()].contiguous(), *args[5:])
             k5 = ed25519_batch.verify_kernel(*k5_args, fe_radix=fe_radix)
             require(bool((k5 == k6).all()), "K5 != K6 at rung 8")
@@ -1930,9 +1960,9 @@ def k6_rows(card: dict, com: "CommitteeCorpus", dev, fe_radix: int = 25,
                 (lambda: ed25519_batch.verify_kernel_gather(*args, fe_radix=fe_radix)) if k == "k6"
                 else (lambda: ed25519_batch.verify_kernel(*k5_args, fe_radix=fe_radix)), 200)
                 for k in ("k6", "k5", "k5", "k6")]
-            ab = {"rows": rung, "k6_four_lanes_ms": [t[0], t[3]], "k5_one_lane_ms": [t[1], t[2]],
+            ab = {"rows": rung, "k6_quarter_lanes_ms": [t[0], t[3]], "k5_coord_lanes_ms": [t[1], t[2]],
                   "k5_over_k6": (t[1] + t[2]) / (t[0] + t[3])}
-            log(f"A/B K6 (four lanes) vs K5 (one lane){' radix 13' if fe_radix == 13 else ''} at "
+            log(f"A/B K6 (quarter lanes) vs K5 (coordinate lanes){' radix 13' if fe_radix == 13 else ''} at "
                 f"{rung} rows, in turns: " + json.dumps(ab))
         name = (f"K6 certificate verify (txf_verify alone), rung {rung}" if fe_radix == 25 else
                 f"K6 over K8: certificate verify (txf_verify of verify13 alone), rung {rung}")
@@ -1944,7 +1974,7 @@ def k6_rows(card: dict, com: "CommitteeCorpus", dev, fe_radix: int = 25,
                          max_abs_err=int((k6.int() - p6.int()).abs().max()), ms=ms, plain_ms=pms,
                          bound_ms=bnd, bound_by=by, library_ms=None, rung=rung, **VERIFY_LAUNCH_NOTE,
                          shape=f"{rung} rows, {n_ok} past the host pre-checks, V={COM_SIZE}",
-                         **({"ab_k5_one_lane": ab} if ab else {})))
+                         **({"ab_k5_coord_lanes": ab} if ab else {})))
         log(f"K6{' radix 13' if fe_radix == 13 else ''} rung {rung}: bit-exact ({int(k6h.sum())} valid of {rung}); {ms:.4f} ms "
             f"(plain {pms:.1f} ms, bound {bnd:.5f} ms by {by})")
     return rows
@@ -2464,14 +2494,15 @@ def mesh_rows(card: dict, corpus: Corpus, mesh: Mesh, fb: FirstBatch, launches: 
     n_ok = int(fb.tables.pre_ok[:bs].sum())
     ms = cuda_ms_window(lambda: ed25519_batch.verify_kernel(*k5_args), 10)
     pms = cuda_ms(lambda: ed25519_batch.verify_kernel_plain(*k5_args), 2)
-    bnd, by = bound_ms(card, nbytes(*k5_args) + bs * 4,
+    bnd, by = bound_ms(card, nbytes(*k5_args, curve.device_base_quarters(dev0)[0]) + bs * 4,
                        n_ok * ed25519_batch.mads_per_signature(25, four_lanes=False))
-    rows.append(dict(name="K5 ed25519 verify over per-vote tables (txf_verify_tables)", route="cuda",
+    rows.append(dict(name="K5 ed25519 verify over per-vote tables (txf_verify_tables, four lanes a row by "
+                          "coordinate)", route="cuda",
                      source="txflow_tpu_torch/csrc/verify.cu",
                      replaces="txflow_tpu/ops/ed25519_batch.py:146", launches=launches["verify_tables"],
                      max_abs_err=int((k5.int() - p5.int()).abs().max()), ms=ms, plain_ms=pms,
                      bound_ms=bnd, bound_by=by, library_ms=None,
-                     shape=f"{bs} rows (one shard), {n_ok} past the host pre-checks"))
+                     shape=f"{bs} rows (one shard), {n_ok} past the host pre-checks", **COORD_NOTE))
     log(f"K5 verify_tables: bit-exact over {bs} rows; {ms:.3f} ms (plain {pms:.1f} ms, "
         f"bound {bnd:.4f} ms by {by})")
 
@@ -2647,7 +2678,8 @@ def ptxas_info() -> dict:
                 spills[0] += int(m.group(2))
                 spills[1] += int(m.group(3))
                 if kernel_of(fn):
-                    kernels.setdefault(kernel_of(fn), {})["stack_bytes"] = int(m.group(1))
+                    kernels.setdefault(kernel_of(fn), {}).update(
+                        stack_bytes=int(m.group(1)), spill_bytes=int(m.group(2)) + int(m.group(3)))
                 continue
             m = re.search(r"Used (\d+) registers", ln)
             if m and kernel_of(fn):
@@ -2770,11 +2802,14 @@ def k8_rows(card: dict, k3: dict, dev, launches: dict, ptx: dict) -> tuple[list[
                  and (k2[1] == k2_25[1]).all()), "dsm_encode13 != dsm_encode over radix 25")
     ms = cuda_ms_window(lambda: curve.dsm_encode(s_nib, h_nib, vidx, tables13, fe_radix=13), 10)
     pms = cuda_ms(lambda: curve.dsm_encode_plain(s_nib, h_nib, vidx, tables13, fe_radix=13), 2)
-    bnd, by = bound_ms(card, nbytes(s_nib, h_nib, vidx, tables13, *k2),
+    bnd, by = bound_ms(card, nbytes(s_nib, h_nib, vidx, tables13, *k2,
+                                    curve.device_base_quarters(dev, 13)[0]),
                        N_DSM * curve.MULS_PER_DSM_ENCODE * fe13.MADS_PER_MUL)
-    rows.append(dict(name="K2 over K8: double-scalar multiply + encode (dsm_encode kernel of verify13 alone; "
-                          "runs inside txf_verify of verify13)", route="cuda",
-                     source="txflow_tpu_torch/csrc/ge25519.cuh (-DTXF_FE_RADIX=13)",
+    rows.append(dict(name="K2 over K8: double-scalar multiply + encode (dsm_encode kernel of verify13 alone, "
+                          "four lanes a row by coordinate; the formulas run inside txf_verify of verify13)",
+                     route="cuda", **COORD_NOTE,
+                     source="txflow_tpu_torch/csrc/ge25519.cuh, txflow_tpu_torch/csrc/verify.cu "
+                            "(-DTXF_FE_RADIX=13)",
                      replaces="txflow_tpu/ops/curve.py:162", launched_in="txf_verify (verify13)",
                      launches=launches["verify13_tally"],
                      max_abs_err=int(max((k2[0] - p2[0]).abs().max(), (k2[1] - p2[1]).abs().max())),
@@ -2837,9 +2872,10 @@ def k8_rows(card: dict, k3: dict, dev, launches: dict, ptx: dict) -> tuple[list[
     require(bool((k5 == mask25).all()), "verify_tables13 mask != the radix-25 kernel's")
     ms5 = cuda_ms_window(lambda: ed25519_batch.verify_kernel(*k5_args, fe_radix=13), 10)
     pms5 = cuda_ms(lambda: ed25519_batch.verify_kernel_plain(*(x[sub] for x in k5_args), fe_radix=13), 1)
-    bnd5, by5 = bound_ms(card, nbytes(*k5_args) + MAX_BATCH * 4,
+    bnd5, by5 = bound_ms(card, nbytes(*k5_args, curve.device_base_quarters(dev, 13)[0]) + MAX_BATCH * 4,
                          n_ok * ed25519_batch.mads_per_signature(13, four_lanes=False))
-    rows.append(dict(name="K5 over K8: verify over per-vote tables (txf_verify_tables of verify13)",
+    rows.append(dict(name="K5 over K8: verify over per-vote tables (txf_verify_tables of verify13, four "
+                          "lanes a row by coordinate)", **COORD_NOTE,
                      route="cuda", source="txflow_tpu_torch/csrc/verify.cu (-DTXF_FE_RADIX=13)",
                      replaces="txflow_tpu/ops/ed25519_batch.py:146 under txflow_tpu/ops/fe.py:173",
                      launches=launches["verify_tables13"],

@@ -45,8 +45,9 @@ def test_launcher_is_made_once_per_kernel_and_card(fake, monkeypatch):  # noqa: 
     assert set(_lib._launchers) == {("verify", "txf_verify", 0), ("verify", "txf_verify", 1),
                                     ("tally", "txf_tally", 0)}
     assert _lib.launches["verify"] == 5 and _lib.launches["tally"] == 2
-    # the base table went to each card once, before that card's first launch
-    assert [c for c in fake.calls if c[0] == "table"] == [("table", 0), ("table", 1)]
+    # one C call a launch, on its card: nothing is copied to a card first
+    assert fake.calls == [("txf_verify", card, 1000 + card) for card in (0, 1, 0, 1, 0)] + [
+        ("txf_tally", 0, 1000)] * 2
 
 
 def test_warm_launcher_switches_to_its_card_only_when_another_is_current(fake):  # noqa: F811

@@ -7,14 +7,15 @@ valid votes, flipped R and S bytes, a wrong message, a wrong key, S >= L,
 a short signature, an off-curve key, a flipped sign bit, an index outside
 the set, and R = 1 against the non-canonical R = p + 1 on the identity.
 Tolerance 0 (bool masks). The JAX reference is computed once (one jit
-compile). Also the K5 launch on a faked card: it needs the verify
-library's __constant__ base table like K3."""
+compile). Also the K5 launch on a faked card: it passes the base table of
+its own card (a device tensor, like K3's base quarters) and a points
+scratch there, one counted launch a call."""
 
 import numpy as np
 import pytest
 import torch
 
-from test_torch_launch import fake, on  # noqa: F401  (fixture)
+from test_torch_launch import fake, fake_base_tables, fake_scratch, k5_inputs, on  # noqa: F401
 from txflow_tpu.crypto import ed25519 as jed
 from txflow_tpu.ops import ed25519_batch as jeb
 from txflow_tpu_torch import convert
@@ -146,19 +147,23 @@ def test_verify_batch_without_cuda_raises_unless_cpu_is_asked(ref, monkeypatch):
         eb.verify_batch(ref[5])
 
 
-def test_k5_launch_sets_the_base_table_on_its_card(fake):  # noqa: F811
-    """K5 adds [s]B from the same __constant__ base table as K3: its first
-    launch on a card copies the table there; the K7 tally kernels need
-    none."""
-    _lib.launch("verify_tables", "txf_verify_tables", on(2), 64, 11, 64)
+def test_k5_launch_sets_the_base_table_on_its_card(fake, monkeypatch):  # noqa: F811
+    """K5 adds [s]B from the base table of its own card and field, quarter
+    0 of the card's base quarters (as K3 takes all four): a K5 call on
+    card 2 passes card 2's table and a scratch allocated there, and counts
+    one launch; the K7 tally kernels take no table."""
+    fake_base_tables(monkeypatch)
+    asked = fake_scratch(monkeypatch)
+    got = []
+    monkeypatch.setattr(fake, "txf_verify_tables", lambda *a: got.append(a) or 0, raising=False)
+    eb.verify_kernel(*k5_inputs(2))
     _lib.launch("tally_partial", "txf_tally_partial", on(3), 4096, 7)
     _lib.launch("reduce_quorum", "txf_reduce_quorum", on(3), 4096, 7)
     _lib.launch("ring_add", "txf_add", on(3), 4096, 7)
-    _lib.launch("verify_tables", "txf_verify_tables", on(2), 64, 11, 64)
-    assert fake.calls == [
-        ("table", 2), ("txf_verify_tables", 2, 1002),
-        ("txf_tally_partial", 3, 1003), ("txf_reduce_quorum", 3, 1003),
-        ("txf_add", 3, 1003), ("txf_verify_tables", 2, 1002),
-    ]
+    eb.verify_kernel(*k5_inputs(2))
+    assert got == [(101, 102, 103, 7045, 104, 105, 106, 5000, 5000 + 4 * 64 * 30, 64, 1002)] * 2
+    assert asked == [((64 * 31,), torch.int32, torch.device("cuda", 2))] * 2
+    assert fake.calls == [("txf_tally_partial", 3, 1003), ("txf_reduce_quorum", 3, 1003),
+                          ("txf_add", 3, 1003)]
     assert _lib.launches["verify_tables"] == 2 and _lib.launches["verify"] == 0
     assert all(_lib.launches[k] == 1 for k in ("tally_partial", "reduce_quorum", "ring_add"))

@@ -9,18 +9,24 @@
 // makes an addition 8 field multiplies. A table entry is one row of
 // 4 * TXF_NLIMB int32 (4 coordinates x the field's limbs). The TPU
 // selected entries with a one-hot matrix product (an MXU trick); here a
-// selection is an indexed load of that row: the base table from
-// __constant__ memory, the validator's epoch table from global memory at
-// row val_idx*16 + nibble.
+// selection is an indexed load of that row: the base table from shared
+// memory (staged per block from a device tensor), the validator's epoch
+// table from global memory at row val_idx*16 + nibble.
 //
 // What bounds it: field multiplies, 3147 per double-scalar multiply and
 // encode in one thread (45 per window over 64 windows, plus 267 for the
-// inversion and the two affine products); the four-lane verify kernel
-// (verify.cu) cuts one thread's chain to 16 windows and two combine
-// rounds (ge_p3_to_pniels + ge_pniels_add), 709, then a second launch's
-// encode, 267. The
-// window loops are not unrolled, so the code stays small; each point
-// lives in registers.
+// inversion and the two affine products). No kernel runs them in one
+// thread any more; verify.cu runs every signature on four lanes, in one
+// of two ways. By scalar quarter (K3, K6: txf_verify_kernel), each lane
+// runs these formulas whole over 16 windows and two combine rounds
+// (ge_p3_to_pniels + ge_pniels_add), 709 products, then a second launch's
+// encode, 267. By coordinate (K5, K2: txf_coord_dsm_kernel), the four
+// lanes hold X, Y, Z and T and each computes one of the four independent
+// products of a round of ge_double or ge_pniels_add -- the same field
+// operations on the same operands as the functions below, so the bounds
+// that follow hold there too -- 12 products a window over 64 windows, then
+// the encode in a second launch. The window loops are not unrolled, so the
+// code stays small; each point lives in registers.
 //
 // One source, two fields: TXF_FE_RADIX=13 (nvcc -DTXF_FE_RADIX=13, the
 // library verify13) builds these formulas over the radix-2^13 field of

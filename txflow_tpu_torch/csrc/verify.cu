@@ -13,54 +13,70 @@
 // and the sign bit matches, ANDed with the host pre-checks (S < L, key on
 // curve, first occurrence).
 //
-// K3 (txf_verify, also K6's launch) runs four lanes a signature: lane j
-// of a group of four consecutive lanes takes quarter j of both scalars
-// (bits [64j, 64j + 64), nibbles [48 - 16j, 64 - 16j) of the MSB-first
-// nibbles), so [S]B + [h](-A) = sum_j [S_j] 2^(64j) B + [h_j] 2^(64j) (-A)
-// over 16 windows each, with the quarter-j tables of B (staged per block
-// in shared memory from a device tensor) and of -A (row val_idx of the
-// epoch's tables for j = 0, of its quarter tables for j = 1..3). Two
-// butterfly rounds of shuffles within the group (xor 1, then xor 2) add
-// the lanes' points (ge_p3_to_pniels + ge_pniels_add), lane 0 stores the
-// sum, and a second launch encodes and compares it, one thread a row.
-// K5 (txf_verify_tables) and the K2 check kernel
-// (txf_dsm_encode) keep one thread a signature over 64 windows (the body
-// dsm_encode_row, base table in __constant__ memory); K3 and K5 differ
-// in where a -A table comes from: the epoch tables, or the row's own
-// gathered table.
+// Two ways of running one signature on four lanes, both in this file:
+//
+// K3 (txf_verify, also K6's launch) splits the scalars: lane j of a group
+// of four consecutive lanes takes quarter j of both scalars (bits [64j,
+// 64j + 64), nibbles [48 - 16j, 64 - 16j) of the MSB-first nibbles), so
+// [S]B + [h](-A) = sum_j [S_j] 2^(64j) B + [h_j] 2^(64j) (-A) over 16
+// windows each, with the quarter-j tables of B (staged per block in shared
+// memory from a device tensor) and of -A (row val_idx of the epoch's
+// tables for j = 0, of its quarter tables for j = 1..3). Two butterfly
+// rounds of shuffles within the group (xor 1, then xor 2) add the lanes'
+// points (ge_p3_to_pniels + ge_pniels_add), lane 0 stores the sum, and a
+// second launch encodes and compares it, one thread a row.
+//
+// K5 (txf_verify_tables) and the K2 check kernel (txf_dsm_encode) split
+// each point formula instead: lane c of a group holds coordinate c of the
+// Extended accumulator (X, Y, Z, T) through all 64 windows, and each
+// doubling and addition runs as two rounds of four independent products,
+// one a lane (the 4-way parallel form of Hisil, Wong, Carter and Dawson,
+// "Twisted Edwards Curves Revisited", section 4), with whole field
+// elements exchanged by shuffles between rounds. They take this split and
+// not the quarter split because the quarter tables of -A are not theirs:
+// K5 gets one gathered 16-entry table of -A a vote and no validator index
+// (txflow_tpu/ops/ed25519_batch.py:146), so quarter tables would cost up
+// to 192 serial doublings a row in the kernel or three more gathered
+// tables a vote from the host; the coordinate split needs only the table
+// it is given. Lanes 0-2 store X, Y and Z, and a second launch encodes,
+// one thread a row (K5 through K3's encode kernel, without a tally).
 //
 // Built twice from this one source (ops/_lib.py:LIBS): the library verify
 // over the radix-2^25.5 field (K1), and verify13 with -DTXF_FE_RADIX=13
 // over the radix-2^13 field (K8, fe25519_13.cuh; tables [V, 16, 4, 20]).
-// Each library has its own __constant__ base table in its field's limbs;
-// the quarter split is at the point level, so both fields take it from
-// this source.
+// Both splits are at the point level, so both fields take them from this
+// source. No kernel reads __constant__ memory: every base table is a
+// device tensor (curve.device_base_quarters) staged in shared memory per
+// block, since a warp's lanes read up to 32 different entries at once,
+// which the constant cache would serve one address at a time.
 //
 // What bounds it: integer multiply-adds (3147 field products a signature
 // in one thread, about 362k 32-bit multiply-adds over the radix-2^25.5
-// field, 1.34M over radix 2^13; the four-lane form does 3103, see
-// ops/curve.py:MULS_PER_QUARTER_DSM_ENCODE); the inputs are 162 bytes per
-// vote plus the epoch tables (L1/L2-resident for any realistic validator
-// set) -- or, for K5, 2560 or 5120 bytes of gathered table per vote, still
-// two orders of magnitude under the multiply-add time. But no batch the
-// engine sends keeps the card's multiply-add units busy: one thread's
-// chain of 3147 dependent products is the kernel's time at 8 rows (one
-// warp) and still at 16,384 (512 warps on 132 SMs, about one warp a
-// scheduler, 188 registers a thread: nothing to issue while a product's
-// latency runs). Design answer: the quarter split shortens one lane's
-// chain to about 976 products (16 windows of 45 less the first window's
+// field, 1.34M over radix 2^13; the quarter split does 3103, see
+// ops/curve.py:MULS_PER_QUARTER_DSM_ENCODE; the coordinate split issues
+// 3339, MULS_PER_COORD_DSM_ENCODE); the inputs are 162 bytes per vote
+// plus the epoch tables (L1/L2-resident for any realistic validator set)
+// -- or, for K5, 2560 or 5120 bytes of gathered table per vote, still two
+// orders of magnitude under the multiply-add time. But no batch the
+// engine sends keeps the card's multiply-add units busy when one thread
+// carries a signature: its chain of 3147 dependent products is the
+// kernel's time at 8 rows (one warp) and still at 16,384 (512 warps on
+// 132 SMs, about one warp a scheduler, 188 registers a thread: nothing to
+// issue while a product's latency runs). Both splits answer with four
+// times the warps and a lane's chain cut to about a third: the quarter
+// split to about 976 products (16 windows of 45 less the first window's
 // 29 doublings of the identity, two combine rounds of 9, then the
-// encode's 267 in the second launch) for 1% less work (3103 products a
-// signature), and puts four times the warps on the schedulers; splitting
-// a field product over lanes would cost more shuffles than it saves. At
-// 16384 rows the card is then busy, and the encode runs one thread a row
-// so that a warp pays its serial chain for 32 rows, not 8. The base
-// quarters move from __constant__ to
-// shared memory: a warp's lanes read up to 16 different entries, which
-// the constant cache serves one address at a time. All curve state stays
-// in registers, and rows whose host pre-checks failed (bucket padding,
-// S >= L, off-curve keys, in-batch repeats) return at once, a whole group
-// together, instead of computing a result that the AND would discard.
+// encode's 267 in the second launch), the coordinate split to 1035 (64
+// windows of 12: each formula's two rounds; then the encode's 267). What
+// neither does is split one field product over lanes: its 100 (or 400)
+// multiply-adds feed one carry chain, so the partial column sums would
+// cross lanes inside every product, where the coordinate split exchanges
+// whole field elements only between a formula's two rounds. The encode
+// runs one thread a row so that a warp pays its serial chain for 32 rows,
+// not 8. All curve state stays in registers, and rows whose host
+// pre-checks failed (bucket padding, S >= L, off-curve keys, in-batch
+// repeats) return at once, a whole group together, instead of computing a
+// result that the AND would discard.
 //
 // The served step (txf_verify_tally, txf_verify_tally64) carries the
 // stake tally in the same two launches: K4 on one card, or a shard's
@@ -88,42 +104,7 @@
 #define TXF_QUARTERS 4
 #define TXF_QWINDOWS 16  // windows a lane runs: 64 bits of each scalar
 #define TXF_CLOSE_LOADS 16  // slots a thread of the closing block reads at once
-
-// Base-point table [16][4][TXF_NLIMB] of the one-lane kernels (K5, the K2
-// check kernel), written once per card by txf_set_base_table (the host
-// builds it, ops/curve.py:BASE_TABLES).
-__constant__ int32_t c_base_table[16 * TXF_ROW];
-
-// [s]B + [h](-A), encoded, in one thread, with vt the 16 x TXF_ROW window
-// table of -A: the shared body of K5 and the dsm_encode kernel. One
-// compiled copy (not inlined into each kernel), and one copy of each
-// point formula in its window loop (the four doublings and the two
-// additions are loops, not unrolled): the code a build compiles stays a
-// few dozen field products, whichever field.
-__device__ __noinline__ void dsm_encode_row(int i, const uint8_t* __restrict__ s_nib,
-                                            const uint8_t* __restrict__ h_nib,
-                                            const int32_t* __restrict__ vt, fe y,
-                                            int32_t* parity) {
-  ge_p3 acc;
-  ge_identity(&acc);
-  const uint8_t* sn = s_nib + (int64_t)i * 64;
-  const uint8_t* hn = h_nib + (int64_t)i * 64;
-  ge_pniels n;
-#pragma unroll 1
-  for (int w = 0; w < 64; ++w) {
-#pragma unroll 1
-    for (int k = 0; k < 4; ++k) ge_double(&acc, &acc, k == 3);
-#pragma unroll 1
-    for (int t = 0; t < 2; ++t) {
-      if (t == 0)
-        ge_load_pniels(&n, c_base_table + (sn[w] & 15) * TXF_ROW);
-      else
-        ge_load_pniels(&n, vt + (hn[w] & 15) * TXF_ROW);
-      ge_pniels_add(&acc, &acc, &n);
-    }
-  }
-  ge_encode(y, parity, &acc);
-}
+#define TXF_COORDS 4  // lanes a row of the coordinate split (K5, K2)
 
 // encode(P) against the signature's raw R: y limbs and the sign bit.
 __device__ __forceinline__ int32_t r_matches(int i, const fe y, int32_t parity,
@@ -132,6 +113,19 @@ __device__ __forceinline__ int32_t r_matches(int i, const fe y, int32_t parity,
   fe r;
   fe_from_bytes(r, r_y + (int64_t)i * 32);
   return (fe_equal(y, r) && parity == (int32_t)r_sign[i]) ? 1 : 0;
+}
+
+// P = (X, Y, Z) of row i from a [B][3][TXF_NLIMB] points scratch (T is
+// not stored: the encode does not read it).
+__device__ __forceinline__ void ge_load_xyz(ge_p3* p, const int32_t* __restrict__ points,
+                                            int i) {
+  const int32_t* o = points + (int64_t)i * 3 * TXF_NLIMB;
+#pragma unroll
+  for (int l = 0; l < TXF_NLIMB; ++l) {
+    p->X[l] = o[l];
+    p->Y[l] = o[TXF_NLIMB + l];
+    p->Z[l] = o[2 * TXF_NLIMB + l];
+  }
 }
 
 // The partner lane's point (lane ^ r within the group of four).
@@ -254,14 +248,8 @@ txf_verify_encode_kernel(const int32_t* __restrict__ points,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   int32_t ok = 0;
   if (i < B && pre_ok[i]) {
-    const int32_t* o = points + (int64_t)i * 3 * TXF_NLIMB;
     ge_p3 p;
-#pragma unroll
-    for (int l = 0; l < TXF_NLIMB; ++l) {
-      p.X[l] = o[l];
-      p.Y[l] = o[TXF_NLIMB + l];
-      p.Z[l] = o[2 * TXF_NLIMB + l];
-    }
+    ge_load_xyz(&p, points, i);
     fe y;
     int32_t parity;
     ge_encode(y, &parity, &p);
@@ -300,43 +288,148 @@ txf_verify_encode_kernel(const int32_t* __restrict__ points,
   if (threadIdx.x == 0) *done = 0;
 }
 
-// K5: the same check in one thread a signature, with one gathered -A
-// table per vote ([B][16][4][TXF_NLIMB]).
-__global__ void __launch_bounds__(128)
-txf_verify_tables_kernel(const uint8_t* __restrict__ s_nib,
-                         const uint8_t* __restrict__ h_nib,
-                         const int32_t* __restrict__ a_tables,
-                         const uint8_t* __restrict__ r_y,
-                         const uint8_t* __restrict__ r_sign,
-                         const uint8_t* __restrict__ pre_ok,
-                         int32_t* __restrict__ out, int B) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  if (!pre_ok[i]) {
-    out[i] = 0;
-    return;
-  }
-  fe y;
-  int32_t parity;
-  dsm_encode_row(i, s_nib, h_nib, a_tables + (int64_t)i * 16 * TXF_ROW, y,
-                 &parity);
-  out[i] = r_matches(i, y, parity, r_y, r_sign);
+// Lane src's field element within the group of four (any src a lane
+// names, itself included).
+__device__ __forceinline__ void fe_shfl(fe out, const fe v, int src, unsigned mask) {
+#pragma unroll
+  for (int l = 0; l < TXF_NLIMB; ++l) out[l] = __shfl_sync(mask, v[l], src, TXF_COORDS);
 }
 
+// K5 and K2, first launch: the coordinate split. Four consecutive lanes a
+// row, lane c holding coordinate c of the Extended accumulator (X, Y, Z,
+// T); blockDim / 4 rows a block; 64 windows MSB first, each 4 doublings,
+// + [s_w]B, + [h_w]A'. A formula is two rounds, one field product a lane
+// in each:
+//   doubling round 1 (one shuffle: lane 0 takes Y, lane 3 takes X):
+//     lane 0 (X+Y)^2, lane 1 Y^2, lane 2 2 Z^2, lane 3 X^2;
+//   addition round 1 (one xor-1 shuffle: lane 0 takes Y, 1 X, 2 T, 3 Z;
+//     lane c loads coordinate c^1 of the PNiels entry, so a group reads
+//     one contiguous row): lane 0 A = (Y-X)(Y2-X2), lane 1 B =
+//     (Y+X)(Y2+X2), lane 2 C = T 2dT2, lane 3 D = 2 Z Z2;
+//   round 2 of both (every lane reads the four products, four shuffles,
+//     and forms E, F, G, H as ge_double or ge_pniels_add does): lane 0
+//     X3 = E F, lane 1 Y3 = G H, lane 2 Z3 = F G, lane 3 T3 = E H; in a
+//     doubling lane 3 keeps its T unless an addition follows (compute_t).
+// These are the field operations of ge_double and ge_pniels_add on the
+// same operands, so ge25519.cuh's bounds hold as they are, and after
+// every window the four lanes hold the one-lane accumulator limb for limb
+// (the plain version, ops/curve.py:_windowed_lanes, checks this against
+// _windowed). Divergence is confined to the adds and copies that pick a
+// lane's operands; every product and shuffle runs on all four lanes.
+//
+// Row i's A' table is tables + (val_idx ? clamp(val_idx[i]) : i) * 16
+// entries: K2's epoch tables [V][16][TXF_ROW] by validator, or K5's one
+// gathered table a row [B][16][TXF_ROW]. base [16][TXF_ROW] (quarter 0 of
+// the base quarters) is staged in shared memory. Lanes 0-2 write X, Y, Z
+// into points [B][3][TXF_NLIMB]; a row whose pre_ok is false (pre_ok
+// nullptr: every row is computed) returns at once, its whole group.
 __global__ void __launch_bounds__(128)
-txf_dsm_encode_kernel(const uint8_t* __restrict__ s_nib,
-                      const uint8_t* __restrict__ h_nib,
-                      const int32_t* __restrict__ val_idx,
-                      const int32_t* __restrict__ tables, int n_vals,
+txf_coord_dsm_kernel(const uint8_t* __restrict__ s_nib,
+                     const uint8_t* __restrict__ h_nib,
+                     const int32_t* __restrict__ val_idx,
+                     const int32_t* __restrict__ tables, int n_vals,
+                     const int32_t* __restrict__ base,
+                     const uint8_t* __restrict__ pre_ok,
+                     int32_t* __restrict__ points, int B) {
+  __shared__ int32_t s_base[16 * TXF_ROW];
+  for (int k = threadIdx.x; k < 16 * TXF_ROW; k += blockDim.x) s_base[k] = base[k];
+  __syncthreads();
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = t >> 2;
+  const int c = t & 3;
+  // a group's four lanes share i: they leave together, and every shuffle
+  // below names only the group's lanes
+  if (i >= B || (pre_ok && !pre_ok[i])) return;
+  const int32_t* vt =
+      tables + (int64_t)(val_idx ? clamp_val(val_idx[i], n_vals) : i) * 16 * TXF_ROW;
+  const uint8_t* sn = s_nib + (int64_t)i * 64;
+  const uint8_t* hn = h_nib + (int64_t)i * 64;
+  const unsigned mask = 0xFu << (threadIdx.x & 28);
+  fe p;  // coordinate c of the accumulator, the identity (0, 1, 1, 0) first
+  fe_set_small(p, c == 1 || c == 2);
+#pragma unroll 1
+  for (int w = 0; w < 64; ++w) {
+#pragma unroll 1
+    for (int k = 0; k < 6; ++k) {  // 4 doublings, + [s_w]B, + [h_w]A'
+      const bool dbl = k < 4;
+      // round 1: one product a lane
+      fe r, a, b;
+      fe_shfl(r, p, dbl ? (c == 0 ? 1 : (c == 3 ? 0 : c)) : (c ^ 1), mask);
+      if (dbl) {
+        if (c == 0)
+          fe_add(a, p, r);  // X + Y
+        else if (c == 3)
+          fe_copy(a, r);  // X
+        else
+          fe_copy(a, p);  // Y, Z
+        fe_copy(b, a);
+      } else {
+        if (c == 0)
+          fe_sub(a, r, p);  // Y - X
+        else if (c == 1)
+          fe_add(a, p, r);  // Y + X
+        else
+          fe_copy(a, r);  // lane 2: T, lane 3: Z
+        const int e = (c ^ 1) * TXF_NLIMB;
+        if (k == 4) {
+          const int32_t* row = s_base + (sn[w] & 15) * TXF_ROW + e;
+#pragma unroll
+          for (int l = 0; l < TXF_NLIMB; ++l) b[l] = row[l];
+        } else {
+          const int32_t* row = vt + (hn[w] & 15) * TXF_ROW + e;
+#pragma unroll
+          for (int l = 0; l < TXF_NLIMB; ++l) b[l] = row[l];
+        }
+      }
+      fe q;
+      fe_mul(q, a, b);
+      if (c == (dbl ? 2 : 3)) fe_mul_small(q, q, 2);  // C = 2 Z^2, D = 2 Z Z2
+      // round 2: the four products on every lane
+      fe q0, q1, q2, q3, E, F, G, H;
+      fe_shfl(q0, q, 0, mask);
+      fe_shfl(q1, q, 1, mask);
+      fe_shfl(q2, q, 2, mask);
+      fe_shfl(q3, q, 3, mask);
+      if (dbl) {  // q0 (X+Y)^2, q1 B = Y^2, q2 C = 2 Z^2, q3 A = X^2
+        fe_add(H, q3, q1);
+        fe_sub(E, H, q0);
+        fe_sub(G, q3, q1);
+        fe_add(F, q2, G);
+      } else {  // q0 A, q1 B, q2 C, q3 D
+        fe_sub(E, q1, q0);
+        fe_sub(F, q3, q2);
+        fe_add(G, q3, q2);
+        fe_add(H, q1, q0);
+      }
+      fe x, y;
+#pragma unroll
+      for (int l = 0; l < TXF_NLIMB; ++l) {
+        x[l] = c == 1 ? G[l] : (c == 2 ? F[l] : E[l]);
+        y[l] = c == 0 ? F[l] : (c == 2 ? G[l] : H[l]);
+      }
+      fe_mul(x, x, y);
+      if (c != 3 || k >= 3) fe_copy(p, x);
+    }
+  }
+  if (c < 3) {
+    int32_t* o = points + ((int64_t)i * 3 + c) * TXF_NLIMB;
+#pragma unroll
+    for (int l = 0; l < TXF_NLIMB; ++l) o[l] = p[l];
+  }
+}
+
+// K2, second launch: one thread a row encodes P into y and its parity.
+__global__ void __launch_bounds__(128)
+txf_dsm_encode_kernel(const int32_t* __restrict__ points,
                       int32_t* __restrict__ y_out,
                       int32_t* __restrict__ parity_out, int B) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
+  ge_p3 p;
+  ge_load_xyz(&p, points, i);
   fe y;
   int32_t parity;
-  dsm_encode_row(i, s_nib, h_nib,
-                 tables + (int64_t)clamp_val(val_idx[i], n_vals) * 16 * TXF_ROW,
-                 y, &parity);
+  ge_encode(y, &parity, &p);
 #pragma unroll
   for (int l = 0; l < TXF_NLIMB; ++l) y_out[(int64_t)i * TXF_NLIMB + l] = y[l];
   parity_out[i] = parity;
@@ -412,11 +505,6 @@ static int verify_launches(const uint8_t* s_nib, const uint8_t* h_nib,
 
 extern "C" {
 
-int txf_set_base_table(const int32_t* host_table) {
-  return (int)cudaMemcpyToSymbol(c_base_table, host_table,
-                                 sizeof(c_base_table));
-}
-
 // points: a [B][3][TXF_NLIMB] int32 scratch the caller allocates.
 int txf_verify(const uint8_t* s_nib, const uint8_t* h_nib,
                const int32_t* val_idx, const int32_t* tables,
@@ -471,22 +559,39 @@ int txf_verify_tally64(const uint8_t* s_nib, const uint8_t* h_nib,
       acc, words, maj, done, B, S, (cudaStream_t)stream);
 }
 
+// K5: four lanes a row, then K3's encode launch without a tally. base:
+// the base table [16][TXF_ROW]; points: a [B][3][TXF_NLIMB] int32 scratch
+// the caller allocates.
 int txf_verify_tables(const uint8_t* s_nib, const uint8_t* h_nib,
-                      const int32_t* a_tables, const uint8_t* r_y,
-                      const uint8_t* r_sign, const uint8_t* pre_ok,
-                      int32_t* out, int B, void* stream) {
+                      const int32_t* a_tables, const int32_t* base,
+                      const uint8_t* r_y, const uint8_t* r_sign,
+                      const uint8_t* pre_ok, int32_t* points, int32_t* out, int B,
+                      void* stream) {
   if (B <= 0) return 0;
-  txf_verify_tables_kernel<<<grid_for(B, 128), 128, 0, (cudaStream_t)stream>>>(
-      s_nib, h_nib, a_tables, r_y, r_sign, pre_ok, out, B);
+  const cudaStream_t st = (cudaStream_t)stream;
+  txf_coord_dsm_kernel<<<grid_for(B * TXF_COORDS, 128), 128, 0, st>>>(
+      s_nib, h_nib, nullptr, a_tables, B, base, pre_ok, points, B);
+  const int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  txf_verify_encode_kernel<int32_t><<<grid_for(B, 128), 128, 0, st>>>(
+      points, r_y, r_sign, pre_ok, out, B, nullptr, nullptr, nullptr, 0, nullptr,
+      0, nullptr, nullptr, nullptr, 0);
   return (int)cudaGetLastError();
 }
 
+// The K2 check: every row computed, its y and parity written. base and
+// points as for txf_verify_tables.
 int txf_dsm_encode(const uint8_t* s_nib, const uint8_t* h_nib,
                    const int32_t* val_idx, const int32_t* tables, int n_vals,
-                   int32_t* y_out, int32_t* parity_out, int B, void* stream) {
+                   const int32_t* base, int32_t* points, int32_t* y_out,
+                   int32_t* parity_out, int B, void* stream) {
   if (B <= 0) return 0;
-  txf_dsm_encode_kernel<<<grid_for(B, 128), 128, 0, (cudaStream_t)stream>>>(
-      s_nib, h_nib, val_idx, tables, n_vals, y_out, parity_out, B);
+  const cudaStream_t st = (cudaStream_t)stream;
+  txf_coord_dsm_kernel<<<grid_for(B * TXF_COORDS, 128), 128, 0, st>>>(
+      s_nib, h_nib, val_idx, tables, n_vals, base, nullptr, points, B);
+  const int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  txf_dsm_encode_kernel<<<grid_for(B, 128), 128, 0, st>>>(points, y_out, parity_out, B);
   return (int)cudaGetLastError();
 }
 

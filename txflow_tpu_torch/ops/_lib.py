@@ -21,12 +21,12 @@ is a dict lookup, a current-device compare, the stream read
 4 us of a launch's 16 on the H100's host, ``PERF.md`` section 6) and the
 ctypes call. A wrapper checks its tensors in one pass (:func:`check_all`).
 
-Each verify library keeps the base-point table of its field in
-``__constant__`` memory (its one-lane kernels read it), which each card
-holds separately for each library: a launcher copies it to a card before
-that library's first launch there. The four-lane ``txf_verify`` takes
-the base point's quarter tables as a device tensor instead
-(``curve.device_base_quarters``).
+No kernel reads ``__constant__`` memory, so a card needs nothing copied
+before a library's first launch there: every verify kernel takes the
+base point's tables of its field as a device tensor of its own card
+(``curve.device_base_quarters``; quarter 0 is the base table that
+``txf_verify_tables`` and ``txf_dsm_encode`` read) and stages them in
+shared memory per block.
 """
 
 from __future__ import annotations
@@ -38,8 +38,6 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-
-import numpy as np
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -53,14 +51,13 @@ NVCC_FLAGS = [
 # the C entry points of a verify library, built once for each field
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _VERIFY_FNS = {
-    "txf_set_base_table": [_P],
     "txf_verify": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P],
     "txf_verify_tally": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                          _P, _P, _P, _I, _P, _P, _P, _I, _I, _P],
     "txf_verify_tally64": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _L, _P, _P, _P, _P, _I, _I, _P],
-    "txf_verify_tables": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
-    "txf_dsm_encode": [_P, _P, _P, _P, _I, _P, _P, _I, _P],
+    "txf_verify_tables": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "txf_dsm_encode": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P],
     "txf_fe_ops": [_P, _P, _P, _I, _P],
 }
 
@@ -84,10 +81,6 @@ LIBS = {
     ),
 }
 
-# verify library -> the field (radix) of the base table in its
-# __constant__ memory
-BASE_TABLE_RADIX = {"verify": 25, "verify13": 13}
-
 # kernel -> library. The fused step's entries (txf_verify_tally(64)) count
 # under their own names, by field, width and form: verify[13]_tally[64]
 # (the quorum form, one card) and verify[13]_partial[64] (a shard's
@@ -105,8 +98,6 @@ KERNELS = {"fe_ops": "verify", "dsm_encode": "verify", "verify": "verify",
 launches = {k: 0 for k in KERNELS}
 
 _loaded: dict[str, ctypes.CDLL] = {}
-# (library, card) pairs whose __constant__ base table is set
-_tabled: set[tuple[str, int]] = set()
 # (kernel, C entry point, card) -> its launcher
 _launchers: dict[tuple[str, str, int], object] = {}
 _mtx = threading.Lock()
@@ -181,46 +172,20 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def _set_base_table(lib: ctypes.CDLL, name: str, index: int) -> None:
-    """Copy the base-point table of library ``name``'s field into the
-    current card's ``__constant__`` memory, once per (library, card)."""
-    key = (name, index)
-    if key in _tabled:
-        return
-    with _mtx:
-        if key in _tabled:
-            return
-        from .curve import BASE_TABLES
-
-        table = np.ascontiguousarray(BASE_TABLES[BASE_TABLE_RADIX[name]], dtype=np.int32)
-        rc = lib.txf_set_base_table(table.ctypes.data)
-        if rc != 0:
-            raise RuntimeError(f"txf_set_base_table failed: CUDA error {rc}")
-        _tabled.add(key)
-
-
 def _make_launcher(kernel: str, fn: str, index: int):
     """The launcher of ``fn`` for ``kernel`` on card ``index``: the
     library loaded (built first if stale) and the C function bound once;
-    each call makes the card current only when another is, copies the
-    library's base table there before its first launch on that card, and
-    passes the card's current stream."""
+    each call makes the card current only when another is and passes the
+    card's current stream."""
     import torch
 
-    name = KERNELS[kernel]
-    lib = library(name)
-    cfn = getattr(lib, fn)
-    table = (name, index) if name in BASE_TABLE_RADIX else None
+    cfn = getattr(library(KERNELS[kernel]), fn)
 
     def call(args):
         cuda = torch.cuda
         if cuda.current_device() == index:
-            if table is not None and table not in _tabled:
-                _set_base_table(lib, name, index)
             return cfn(*args, cuda.current_stream(index).cuda_stream)
         with cuda.device(index):
-            if table is not None and table not in _tabled:
-                _set_base_table(lib, name, index)
             return cfn(*args, cuda.current_stream(index).cuda_stream)
 
     with _mtx:

@@ -10,6 +10,12 @@ their order are those of ``csrc/ge25519.cuh``. Table selection is an
 indexed load on both sides (the TPU's one-hot matrix select has no
 counterpart here). Every function takes ``fe_radix`` (25 or 13, see
 ``ops/field.py``): the field is an argument, never module state.
+
+Three forms of [s]B + [h]A' live here, one for each way a kernel runs it:
+one lane a signature (``_windowed``: the reference every other form is
+held against), four lanes by scalar quarter (``double_scalar_mul_quarters``,
+K3 and K6) and four lanes by point coordinate (``double_scalar_mul_lanes``,
+K5 and K2: one lane a coordinate of the accumulator, ``[..., 4, NLIMB]``).
 """
 
 from __future__ import annotations
@@ -42,6 +48,17 @@ MULS_PER_COMBINE_ROUND = 1 + 8
 MULS_PER_QUARTER_DSM_ENCODE = QUARTERS * (
     QUARTER_WINDOWS * MULS_PER_WINDOW - MULS_PER_DOUBLINGS + 2 * MULS_PER_COMBINE_ROUND
 ) + MULS_PER_ENCODE
+# the coordinate split (K5, K2): four lanes a row, lane c holding
+# coordinate c of (X, Y, Z, T). Every doubling and addition is two rounds
+# of four independent products, one a lane, so a lane's chain is 2
+# products a formula, 12 a window, then the encode's 267 (one thread a row,
+# in a second launch). The lanes issue 8 products a formula: the one-lane
+# body's 45 a window, plus the T product of the three doublings that skip
+# it, which lane 3 computes and drops.
+COORD_LANES = 4
+MULS_PER_COORD_WINDOW = (4 + 2) * 2 * COORD_LANES
+MULS_PER_COORD_DSM_ENCODE = NWINDOWS * MULS_PER_COORD_WINDOW + MULS_PER_ENCODE
+MULS_CHAIN_COORD_DSM_ENCODE = NWINDOWS * MULS_PER_COORD_WINDOW // COORD_LANES + MULS_PER_ENCODE
 
 
 def ext_identity(batch_shape, device=None, fe_radix: int = 25):
@@ -132,6 +149,15 @@ def _windowed(s_nibbles, h_nibbles, base_table, select_a, fe_radix: int = 25):
     return acc
 
 
+def _epoch_rows(tables, val_idx):
+    """nibbles h [B] -> the [B, 4, NLIMB] entries h of each item's table in
+    the epoch tables [V, 16, 4, NLIMB] (val_idx clamped to [0, V))."""
+    n_vals = tables.shape[0]
+    flat = tables.reshape(n_vals * TABLE_SIZE, 4, tables.shape[-1])
+    base = val_idx.to(torch.int64).clamp(0, n_vals - 1) * TABLE_SIZE
+    return lambda h: flat[base + h]
+
+
 def double_scalar_mul_indexed(s_nibbles, h_nibbles, base_table, tables, val_idx,
                               fe_radix: int = 25):
     """[s]B + [h]A' with A' looked up per item in the epoch tables.
@@ -139,11 +165,9 @@ def double_scalar_mul_indexed(s_nibbles, h_nibbles, base_table, tables, val_idx,
     s_nibbles, h_nibbles: [B, 64] MSB-first nibbles; base_table: int32
     [16, 4, NLIMB]; tables: int32 [V, 16, 4, NLIMB]; val_idx: [B] (clamped
     to [0, V)). Returns an Extended point of [B, NLIMB] coordinates."""
-    n_vals = tables.shape[0]
-    flat = tables.reshape(n_vals * TABLE_SIZE, 4, tables.shape[-1])
-    base = val_idx.to(torch.int64).clamp(0, n_vals - 1) * TABLE_SIZE
-    return _windowed(s_nibbles, h_nibbles, base_table,
-                     lambda h: _entry(flat[base + h], fe_radix), fe_radix)
+    rows = _epoch_rows(tables, val_idx)
+    return _windowed(s_nibbles, h_nibbles, base_table, lambda h: _entry(rows(h), fe_radix),
+                     fe_radix)
 
 
 def double_scalar_mul(s_nibbles, h_nibbles, base_table, a_tables, fe_radix: int = 25):
@@ -152,6 +176,116 @@ def double_scalar_mul(s_nibbles, h_nibbles, base_table, a_tables, fe_radix: int 
     results to ``double_scalar_mul_indexed`` over the tables it gathered."""
     return _windowed(s_nibbles, h_nibbles, base_table,
                      lambda h: table_select(a_tables, h, fe_radix), fe_radix)
+
+
+# lane c's source lane in the coordinate split's exchanges: round 1 of a
+# doubling (lane 0 takes Y for (X+Y)^2, lane 3 takes X for X^2), and round 1
+# of an addition (xor 1: X <-> Y, Z <-> T), which is also the coordinate
+# of a table entry that lane c multiplies by
+_DBL_SRC = [1, 1, 2, 0]
+_XOR1 = [1, 0, 3, 2]
+
+
+def to_lanes(p) -> torch.Tensor:
+    """An Extended point (X, Y, Z, T) of [..., NLIMB] coordinates -> the
+    coordinate split's [..., 4, NLIMB], lane c holding coordinate c."""
+    return torch.stack(p, dim=-2)
+
+
+def from_lanes(v: torch.Tensor):
+    """[..., 4, NLIMB] lanes -> an Extended point tuple."""
+    return tuple(v.unbind(-2))
+
+
+def _exchange(v: torch.Tensor, src) -> torch.Tensor:
+    """Lane c of the result is lane ``src[c]`` of ``v`` (one shuffle of a
+    field element within a group of four lanes)."""
+    return v[..., src, :]
+
+
+def _lanes_round2(E, F_, G, H, fe_radix: int):
+    """Round 2 of both formulas: lane 0 X3 = E F, lane 1 Y3 = G H, lane 2
+    Z3 = F G, lane 3 T3 = E H (every lane holds E, F, G and H: the kernel
+    computes them on each lane from the four round-1 products, which every
+    lane reads by four shuffles)."""
+    F = field.ops(fe_radix)
+    return F.fe_mul(torch.stack([E, G, F_, E], dim=-2), torch.stack([F_, H, G, H], dim=-2))
+
+
+def lane_double(v: torch.Tensor, compute_t: bool = True, fe_radix: int = 25) -> torch.Tensor:
+    """``ext_double`` in the coordinate split: v [..., 4, NLIMB]. Round 1:
+    one shuffle (lane 0 takes Y, lane 3 takes X), then lane 0 squares
+    X + Y, lane 1 Y, lane 2 Z (and doubles it), lane 3 X; round 2 as
+    ``_lanes_round2``. Lane 3 keeps its T unless ``compute_t``. The same
+    field operations on the same operands as ``ext_double``."""
+    F = field.ops(fe_radix)
+    r = _exchange(v, _DBL_SRC)
+    a = torch.stack([F.fe_add(v[..., 0, :], r[..., 0, :]), v[..., 1, :], v[..., 2, :],
+                     r[..., 3, :]], dim=-2)
+    q = F.fe_sq(a)
+    S, B, C, A = q[..., 0, :], q[..., 1, :], F.fe_mul_small(q[..., 2, :], 2), q[..., 3, :]
+    H = F.fe_add(A, B)
+    E = F.fe_sub(H, S)
+    G = F.fe_sub(A, B)
+    F_ = F.fe_add(C, G)
+    out = _lanes_round2(E, F_, G, H, fe_radix)  # a new tensor
+    if not compute_t:
+        out[..., 3, :] = v[..., 3, :]
+    return out
+
+
+def lane_pniels_add(v: torch.Tensor, rows: torch.Tensor, fe_radix: int = 25) -> torch.Tensor:
+    """``pniels_add`` in the coordinate split: v [..., 4, NLIMB] plus the
+    PNiels entries ``rows`` [..., 4, NLIMB] (Y2+X2, Y2-X2, Z2, 2dT2).
+    Round 1: one xor-1 shuffle, then lane 0 computes A = (Y-X)(Y2-X2),
+    lane 1 B = (Y+X)(Y2+X2), lane 2 C = T 2dT2, lane 3 D = 2 Z Z2, lane c
+    multiplying by coordinate c^1 of the entry; round 2 as
+    ``_lanes_round2``. The same field operations on the same operands as
+    ``pniels_add``."""
+    F = field.ops(fe_radix)
+    r = _exchange(v, _XOR1)
+    a = torch.stack([F.fe_sub(r[..., 0, :], v[..., 0, :]), F.fe_add(v[..., 1, :], r[..., 1, :]),
+                     r[..., 2, :], r[..., 3, :]], dim=-2)
+    q = F.fe_mul(a, _exchange(rows.to(F.DTYPE), _XOR1))
+    A, B, C, D = q[..., 0, :], q[..., 1, :], q[..., 2, :], F.fe_mul_small(q[..., 3, :], 2)
+    E = F.fe_sub(B, A)
+    F_ = F.fe_sub(D, C)
+    G = F.fe_add(D, C)
+    H = F.fe_add(B, A)
+    return _lanes_round2(E, F_, G, H, fe_radix)
+
+
+def _windowed_lanes(s_nibbles, h_nibbles, base_table, rows_a, fe_radix: int = 25):
+    """``_windowed`` in the coordinate split, with ``rows_a(h_w)`` the
+    [B, 4, NLIMB] A' entries of window nibbles h_w. After every window the
+    lanes hold the one-lane accumulator limb for limb."""
+    s_nib = s_nibbles.to(torch.int64) & 15
+    h_nib = h_nibbles.to(torch.int64) & 15
+    acc = to_lanes(ext_identity(s_nib.shape[:-1], device=s_nib.device, fe_radix=fe_radix))
+    for w in range(NWINDOWS):
+        for k in range(4):
+            acc = lane_double(acc, compute_t=k == 3, fe_radix=fe_radix)
+        acc = lane_pniels_add(acc, base_table[s_nib[..., w]], fe_radix)
+        acc = lane_pniels_add(acc, rows_a(h_nib[..., w]), fe_radix)
+    return from_lanes(acc)
+
+
+def double_scalar_mul_lanes(s_nibbles, h_nibbles, base_table, a_tables, fe_radix: int = 25):
+    """[s]B + [h]A' as the coordinate-split kernel K5 computes it, with
+    one window table of A' per item (a_tables int32 [B, 16, 4, NLIMB]):
+    limb for limb ``double_scalar_mul``'s Extended point."""
+    rows = torch.arange(a_tables.shape[0], device=a_tables.device)
+    return _windowed_lanes(s_nibbles, h_nibbles, base_table, lambda h: a_tables[rows, h],
+                           fe_radix)
+
+
+def double_scalar_mul_indexed_lanes(s_nibbles, h_nibbles, base_table, tables, val_idx,
+                                    fe_radix: int = 25):
+    """[s]B + [h]A' as the coordinate-split kernel K2 computes it, A'
+    looked up per item in the epoch tables (val_idx clamped to [0, V)):
+    limb for limb ``double_scalar_mul_indexed``'s Extended point."""
+    return _windowed_lanes(s_nibbles, h_nibbles, base_table, _epoch_rows(tables, val_idx),
+                           fe_radix)
 
 
 def quarter_nibbles(nibbles: torch.Tensor) -> torch.Tensor:
@@ -237,11 +371,13 @@ def device_base_quarters(device, fe_radix: int = 25) -> torch.Tensor:
 
 
 def dsm_encode_plain(s_nibbles, h_nibbles, val_idx, tables, base=None, fe_radix: int = 25):
-    """Plain version of the K2 kernel: (y int32 [B, NLIMB], parity int32 [B])."""
+    """Plain version of the K2 kernel, by the kernel's coordinate split
+    (``double_scalar_mul_indexed_lanes``): (y int32 [B, NLIMB], parity
+    int32 [B])."""
     if base is None:
         base = base_table(tables.device, fe_radix)
     y, parity = ext_encode(
-        double_scalar_mul_indexed(s_nibbles, h_nibbles, base, tables, val_idx, fe_radix),
+        double_scalar_mul_indexed_lanes(s_nibbles, h_nibbles, base, tables, val_idx, fe_radix),
         fe_radix,
     )
     return y.to(torch.int32), parity.to(torch.int32)
@@ -251,7 +387,10 @@ def dsm_encode(s_nibbles, h_nibbles, val_idx, tables, fe_radix: int = 25):
     """K2 alone: encode([s]B + [h]A') by the CUDA kernel of the field's
     verify library on a card, by the plain version on the CPU. s/h
     nibbles uint8 [B, 64], val_idx int32 [B], tables int32
-    [V, 16, 4, NLIMB]."""
+    [V, 16, 4, NLIMB]. One call is two kernel launches (the coordinate
+    split, four lanes a row, then one thread a row encodes), counted as
+    one in ``_lib.launches``; the base table is the card's cached copy
+    (quarter 0 of ``device_base_quarters``)."""
     F = field.ops(fe_radix)
     if s_nibbles.device.type == "cpu":
         return dsm_encode_plain(s_nibbles, h_nibbles, val_idx, tables, fe_radix=fe_radix)
@@ -264,12 +403,16 @@ def dsm_encode(s_nibbles, h_nibbles, val_idx, tables, fe_radix: int = 25):
     )
     if tables.shape[0] == 0:
         raise ValueError("tables: empty validator set")
-    y = torch.empty((n, F.NLIMB), dtype=torch.int32, device=s_nibbles.device)
-    parity = torch.empty((n,), dtype=torch.int32, device=s_nibbles.device)
+    base = device_base_quarters(s_nibbles.device, fe_radix)
+    # one scratch: each row's [s]B + [h]A' (X, Y, Z) between the two
+    # launches, then y, then the parity
+    scratch = torch.empty((n * (4 * F.NLIMB + 1),), dtype=torch.int32, device=s_nibbles.device)
+    y = scratch[n * 3 * F.NLIMB:n * 4 * F.NLIMB].view(n, F.NLIMB)
+    parity = scratch[n * 4 * F.NLIMB:]
     _lib.launch(
         "dsm_encode" + F.TAG, "txf_dsm_encode", y, n, s_nibbles.data_ptr(),
-        h_nibbles.data_ptr(), val_idx.data_ptr(), tables.data_ptr(),
-        tables.shape[0], y.data_ptr(), parity.data_ptr(), n,
+        h_nibbles.data_ptr(), val_idx.data_ptr(), tables.data_ptr(), tables.shape[0],
+        base.data_ptr(), scratch.data_ptr(), y.data_ptr(), parity.data_ptr(), n,
     )
     return y, parity
 
@@ -376,9 +519,9 @@ def build_quarter_tables(points, fe_radix: int = 25) -> np.ndarray:
 
 
 # the base point's quarter tables in each field ([4, 16, 4, 10] and
-# [4, 16, 4, 20]): the four-lane verify kernel's base tables (staged in
-# shared memory); quarter 0 is the base table, the __constant__ table of
-# each verify library's one-lane kernels
+# [4, 16, 4, 20]): the verify kernels' base tables, uploaded per card by
+# device_base_quarters and staged in shared memory per block; quarter 0 is
+# the base table, all that the coordinate split (K5, K2) reads
 BASE_QUARTER_TABLES = {r: build_quarter_tables([host_ed.BASE], r)[0] for r in field.FIELDS}
 BASE_TABLES = {r: np.ascontiguousarray(q[0]) for r, q in BASE_QUARTER_TABLES.items()}
 BASE_TABLE = BASE_TABLES[25]

@@ -2,8 +2,8 @@
 plain PyTorch versions of the verify kernels, and their CUDA wrappers:
 K3 over device-resident epoch tables (the compact path; four lanes a
 signature, one per 64-bit quarter of the scalars) and K5 over one
-gathered -A table per vote (``verify_kernel``, ``verify_batch``; one
-thread a signature).
+gathered -A table per vote (``verify_kernel``, ``verify_batch``; four
+lanes a signature, one per coordinate of the accumulator).
 
 Counterpart of ``txflow_tpu/ops/ed25519_batch.py``. The host does the
 byte work (S < L, SHA-512 mod L, nibbles, pubkey decompression and the
@@ -204,15 +204,16 @@ def _match_r(y, parity, r_y, r_sign, fe_radix: int = 25):
 def verify_kernel_plain(s_nibbles, h_nibbles, a_tables, r_y, r_sign, pre_ok,
                         fe_radix: int = 25):
     """Plain version of the K5 kernel: bool [B] over per-vote tables
-    (int32 [B, 16, 4, NLIMB]); only the rows whose host pre-checks passed
-    are computed, as in the kernel."""
+    (int32 [B, 16, 4, NLIMB]), by the kernel's coordinate split
+    (``curve.double_scalar_mul_lanes``); only the rows whose host
+    pre-checks passed are computed, as in the kernel."""
     pre_ok = pre_ok.to(torch.bool)
     rows = pre_ok.nonzero().squeeze(-1)
     out = torch.zeros_like(pre_ok)
     if rows.numel() == 0:  # padding only: nothing to compute
         return out
     y, parity = curve.ext_encode(
-        curve.double_scalar_mul(
+        curve.double_scalar_mul_lanes(
             s_nibbles[rows], h_nibbles[rows], curve.base_table(a_tables.device, fe_radix),
             a_tables[rows], fe_radix,
         ),
@@ -227,7 +228,11 @@ def verify_kernel(s_nibbles, h_nibbles, a_tables, r_y, r_sign, pre_ok,
     """K5: bool [B] of Go-equivalent signature validity, each vote checked
     against its own gathered -A table (int32 [B, 16, 4, NLIMB] of the
     ``fe_radix`` field). The CUDA kernel runs for CUDA tensors; CPU
-    tensors take the plain version."""
+    tensors take the plain version. One call is two kernel launches (the
+    coordinate split, four lanes a row, then ``txf_verify_encode_kernel``
+    one thread a row), counted as one in ``_lib.launches``; the base table
+    is the card's cached copy (quarter 0 of
+    ``curve.device_base_quarters``)."""
     if s_nibbles.device.type == "cpu":
         return verify_kernel_plain(s_nibbles, h_nibbles, a_tables, r_y, r_sign, pre_ok,
                                    fe_radix)
@@ -241,11 +246,15 @@ def verify_kernel(s_nibbles, h_nibbles, a_tables, r_y, r_sign, pre_ok,
         (r_sign, torch.uint8, (n,), "r_sign"),
         (pre_ok, torch.bool, (n,), "pre_ok"),
     )
-    out = torch.empty((n,), dtype=torch.int32, device=s_nibbles.device)
+    base = curve.device_base_quarters(s_nibbles.device, fe_radix)
+    # one scratch: each row's [S]B + [h](-A) (X, Y, Z) between the two
+    # launches, then the validity
+    scratch = torch.empty((n * (3 * F.NLIMB + 1),), dtype=torch.int32, device=s_nibbles.device)
+    out = scratch[n * 3 * F.NLIMB:]
     _lib.launch(
         "verify_tables" + F.TAG, "txf_verify_tables", out, n, s_nibbles.data_ptr(),
-        h_nibbles.data_ptr(), a_tables.data_ptr(), r_y.data_ptr(),
-        r_sign.data_ptr(), pre_ok.data_ptr(), out.data_ptr(), n,
+        h_nibbles.data_ptr(), a_tables.data_ptr(), base.data_ptr(), r_y.data_ptr(),
+        r_sign.data_ptr(), pre_ok.data_ptr(), scratch.data_ptr(), out.data_ptr(), n,
     )
     return out.to(torch.bool)
 
@@ -418,10 +427,15 @@ def verify_kernel_gather(
 
 
 def mads_per_signature(fe_radix: int = 25, four_lanes: bool = True) -> int:
-    """Integer multiply-adds a verify kernel of the field spends on one
-    signature that passed the host pre-checks (rows that failed them
-    return at once): the four-lane ``txf_verify`` (K3, K6) by default, the
-    one-lane body of ``txf_verify_tables`` (K5) and ``txf_dsm_encode``
-    with ``four_lanes=False``."""
+    """Integer multiply-adds of one signature that passed the host
+    pre-checks (rows that failed them return at once): the four-lane
+    ``txf_verify`` (K3, K6, by scalar quarter) by default; with
+    ``four_lanes=False`` the one-lane count (``curve.MULS_PER_DSM_ENCODE``),
+    the yardstick of the bound of ``txf_verify_tables`` (K5) and
+    ``txf_dsm_encode`` (K2). Those two split each formula over four lanes
+    by coordinate and issue ``curve.MULS_PER_COORD_DSM_ENCODE`` products,
+    a lane's chain ``curve.MULS_CHAIN_COORD_DSM_ENCODE``; their bound keeps
+    the one-lane count, so that times before and after that redesign read
+    against one yardstick."""
     muls = curve.MULS_PER_QUARTER_DSM_ENCODE if four_lanes else curve.MULS_PER_DSM_ENCODE
     return muls * field.ops(fe_radix).MADS_PER_MUL

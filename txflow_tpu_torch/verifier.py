@@ -411,8 +411,8 @@ class DeviceVoteVerifier:
     def warm(self, rows: int, n_slots: int) -> None:
         """Submit and collect one batch of ``rows`` padding rows (no vote:
         every pre-check false, every slot -1) over ``n_slots`` slots, on
-        every card of the mesh: the kernels' first launch on each card (its
-        ``__constant__`` table copy), the allocator's growth to these
+        every card of the mesh: the kernels' first launch on each card (the
+        base tables' upload, ``curve.device_base_quarters``), the allocator's growth to these
         shapes and the readback ring's pinned buffers are paid here, not
         by the first served step."""
         st = self._stage
