@@ -9,13 +9,18 @@
 2. Kernels: holds each hand-written kernel against its plain PyTorch
    version on the card, bit-exact (integers and bools: tolerance 0):
    K1 field ops on 4096 seeded elements (0, p-1, p, p+18, 2^255-1
-   included), K2 double-scalar multiply + encode on 256 scalar pairs, K3
+   included) and K1's raw products (fe_prod: mul, sq, mul_small by 2) on
+   4096 inputs at the edges of their bounds (every limb at +3 or -3
+   carried units, random signs at 3 units, sums of two carried values,
+   canonical values), K2 double-scalar multiply + encode on 256 scalar pairs, K3
    verify and K4 tally on one 16384-vote batch holding corrupted R and S,
    S >= L, wrong-chain signatures, an off-curve key, a non-canonical R,
    duplicates, padding rows and nonzero prior stake; K3 also against the
    golden model on a sample. Times each (many launches between one pair
    of CUDA events, over their number, after warmup) beside its plain
-   version (median of CUDA-event windows) and its bound.
+   version (median of CUDA-event windows) and its bound (a radix-2^25.5
+   squaring at fe.MADS_PER_SQ multiply-adds, a product at MADS_PER_MUL;
+   bound_ms_sq_as_mul beside it counts a squaring as a product).
 3. Slice: one node's fast path -- a 16-validator set with unequal stake,
    4096 txs in the mempool, 65,536 signed TxVotes (about 1/8 byzantine)
    through TxVotePool -> TxFlow.step() (max_batch 16384) -> TxStore + the
@@ -200,7 +205,7 @@ from txflow_tpu_torch.committee.certverify import _rung
 from txflow_tpu_torch.crypto import ed25519 as host_ed
 from txflow_tpu_torch.engine import TxExecutor, TxFlow
 from txflow_tpu_torch.epoch import EpochConfig
-from txflow_tpu_torch.ops import _lib, curve, ed25519_batch, fe, fe13, tally
+from txflow_tpu_torch.ops import _lib, curve, ed25519_batch, fe, fe13, field, tally
 from txflow_tpu_torch.parallel import mesh as mesh_mod
 from txflow_tpu_torch.parallel import (
     Mesh, make_mesh, sharded_compact_step_packed, sharded_ring_step, sharded_verify_and_tally,
@@ -489,13 +494,43 @@ def kernel_phase(card: dict, corpus: Corpus, dev) -> tuple[list[dict], dict]:
         require([fe.limbs_to_int(r) for r in k1h[i]] == want, f"K1 row {i} != ints")
     ms = cuda_ms_window(lambda: fe.fe_ops(a, b), 50)
     pms = cuda_ms(lambda: fe.fe_ops_plain(a, b), 3)
-    bnd, by = bound_ms(card, nbytes(a, b, k1), N_FE * fe.MULS_PER_FE_OPS * fe.MADS_PER_MUL)
+    bnd, by = bound_ms(card, nbytes(a, b, k1), N_FE * field.mads(25, fe.MULS_PER_FE_OPS, fe.SQS_PER_FE_OPS))
+    bnd_sq = bound_ms(card, nbytes(a, b, k1), N_FE * field.mads(25, fe.MULS_PER_FE_OPS, fe.SQS_PER_FE_OPS,
+                                                               sq_as_mul=True))[0]
     rows.append(dict(name="K1 fe25519 field ops (fe_ops kernel alone; runs inside txf_verify on the main path)",
                      route="cuda", source="txflow_tpu_torch/csrc/fe25519.cuh",
                      replaces="txflow_tpu/ops/fe.py:103", launched_in="txf_verify",
                      max_abs_err=int((k1 - p1).abs().max()), ms=ms, plain_ms=pms,
-                     bound_ms=bnd, bound_by=by, library_ms=None, shape=f"{N_FE} x (mul,sq,sub,inv,freeze)"))
-    log(f"K1 fe_ops: bit-exact over {N_FE} elements; {ms:.4f} ms (plain {pms:.1f} ms, bound {bnd:.5f} ms by {by})")
+                     bound_ms=bnd, bound_by=by, bound_ms_sq_as_mul=bnd_sq, library_ms=None,
+                     shape=f"{N_FE} x (mul,sq,sub,inv,freeze)"))
+    log(f"K1 fe_ops: bit-exact over {N_FE} elements; {ms:.4f} ms (plain {pms:.1f} ms, bound {bnd:.5f} ms by {by} "
+        f"[{bnd_sq:.5f} with a squaring at a product's cost])")
+
+    # K1's raw products on the edges of their input bounds (fe_ops above
+    # sees canonical values only): mul, sq and mul_small(., 2), unfrozen,
+    # limb for limb against the plain version
+    sizes = [N_FE // len(fe.EDGE_KINDS)] * (len(fe.EDGE_KINDS) - 1)
+    erng = np.random.default_rng(SEED + 29)  # its own stream: K2-K4's inputs stay as they were
+    pairs = [fe.bound_edge_limbs(erng, n_k, kind)
+             for n_k, kind in zip(sizes + [N_FE - sum(sizes)], fe.EDGE_KINDS)]
+    ea, eb = (torch.from_numpy(np.concatenate(x)).to(dev) for x in zip(*pairs))
+    kp = fe.fe_prod(ea, eb)
+    pp = fe.fe_prod_plain(ea, eb)
+    torch.cuda.synchronize()
+    require(bool((kp == pp).all()), "K1 fe_prod kernel != plain on the bound edges")
+    ms = cuda_ms_window(lambda: fe.fe_prod(ea, eb), 200)
+    pms = cuda_ms(lambda: fe.fe_prod_plain(ea, eb), 3)
+    bnd, by = bound_ms(card, nbytes(ea, eb, kp), N_FE * (field.mads(25, 2, 1) + fe.NLIMB))
+    bnd_sq = bound_ms(card, nbytes(ea, eb, kp), N_FE * (field.mads(25, 2, 1, sq_as_mul=True) + fe.NLIMB))[0]
+    rows.append(dict(name="K1 fe25519 raw products on bound-edge inputs (fe_prod kernel alone: mul, sq, "
+                          "mul_small by 2; runs inside txf_verify on the main path)",
+                     route="cuda", source="txflow_tpu_torch/csrc/fe25519.cuh",
+                     replaces="txflow_tpu/ops/fe.py:103,127,131", launched_in="txf_verify",
+                     max_abs_err=int((kp - pp).abs().max()), ms=ms, plain_ms=pms,
+                     bound_ms=bnd, bound_by=by, bound_ms_sq_as_mul=bnd_sq, library_ms=None,
+                     shape=f"{N_FE} x (mul, sq, mul_small) over " + ", ".join(fe.EDGE_KINDS)))
+    log(f"K1 fe_prod: bit-exact over {N_FE} bound-edge elements ({', '.join(fe.EDGE_KINDS)}); "
+        f"{ms:.4f} ms (plain {pms:.1f} ms, bound {bnd:.6f} ms by {by} [{bnd_sq:.6f}])")
 
     # the epoch: 16 validators + one off-curve key, padded to capacity 32
     pubs = [v.pub_key for v in corpus.val_set]
@@ -515,16 +550,19 @@ def kernel_phase(card: dict, corpus: Corpus, dev) -> tuple[list[dict], dict]:
     require(bool((k2[0] == p2[0]).all() and (k2[1] == p2[1]).all()), "K2 dsm_encode kernel != plain")
     ms = cuda_ms_window(lambda: curve.dsm_encode(s_nib, h_nib, vidx, tables), 10)
     pms = cuda_ms(lambda: curve.dsm_encode_plain(s_nib, h_nib, vidx, tables), 2)
-    bnd, by = bound_ms(card, nbytes(s_nib, h_nib, vidx, tables, *k2, curve.device_base_quarters(dev)[0]),
-                       N_DSM * curve.MULS_PER_DSM_ENCODE * fe.MADS_PER_MUL)
+    k2_bytes = nbytes(s_nib, h_nib, vidx, tables, *k2, curve.device_base_quarters(dev)[0])
+    bnd, by = bound_ms(card, k2_bytes, N_DSM * field.mads(25, curve.MULS_PER_DSM_ENCODE, curve.SQS_PER_DSM_ENCODE))
+    bnd_sq = bound_ms(card, k2_bytes, N_DSM * field.mads(25, curve.MULS_PER_DSM_ENCODE, curve.SQS_PER_DSM_ENCODE,
+                                                         sq_as_mul=True))[0]
     rows.append(dict(name="K2 ge25519 double-scalar multiply + encode (dsm_encode kernel alone, four lanes a "
                           "row by coordinate; the formulas run inside txf_verify on the main path)",
                      route="cuda", source="txflow_tpu_torch/csrc/ge25519.cuh, txflow_tpu_torch/csrc/verify.cu",
                      replaces="txflow_tpu/ops/curve.py:162", launched_in="txf_verify",
                      max_abs_err=int(max((k2[0] - p2[0]).abs().max(), (k2[1] - p2[1]).abs().max())),
-                     ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=None,
-                     shape=f"{N_DSM} pairs", **COORD_NOTE))
-    log(f"K2 dsm_encode: bit-exact over {N_DSM} pairs; {ms:.4f} ms (plain {pms:.1f} ms, bound {bnd:.5f} ms by {by})")
+                     ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by, bound_ms_sq_as_mul=bnd_sq,
+                     library_ms=None, shape=f"{N_DSM} pairs", **COORD_NOTE))
+    log(f"K2 dsm_encode: bit-exact over {N_DSM} pairs; {ms:.4f} ms (plain {pms:.1f} ms, bound {bnd:.5f} ms by {by} "
+        f"[{bnd_sq:.5f}])")
 
     # K3 + K4: one MAX_BATCH-vote batch (about 92% votes, 2% duplicates,
     # the rest padding); sign bytes built aside, so the slice's vote
@@ -601,16 +639,17 @@ def kernel_phase(card: dict, corpus: Corpus, dev) -> tuple[list[dict], dict]:
     n_ok = int(ok.sum())
     ms = cuda_ms_window(lambda: ed25519_batch.verify_kernel_gather(*args), 10)
     pms = cuda_ms(lambda: ed25519_batch.verify_kernel_gather_plain(*args), 2)
-    bnd, by = bound_ms(card, nbytes(*args) + nbytes(curve.device_base_quarters(dev, 25)) + B * 4,
-                       n_ok * ed25519_batch.mads_per_signature(25))
+    k3_bytes = nbytes(*args) + nbytes(curve.device_base_quarters(dev, 25)) + B * 4
+    bnd, by = bound_ms(card, k3_bytes, n_ok * ed25519_batch.mads_per_signature(25))
+    bnd_sq = bound_ms(card, k3_bytes, n_ok * ed25519_batch.mads_per_signature(25, sq_as_mul=True))[0]
     rows.append(dict(name="K3 ed25519 verify (txf_verify, four lanes a signature)", route="cuda",
                      source="txflow_tpu_torch/csrc/verify.cu",
                      replaces="txflow_tpu/ops/ed25519_batch.py:384",
                      max_abs_err=int((k3.int() - p3.int()).abs().max()), ms=ms, plain_ms=pms,
-                     bound_ms=bnd, bound_by=by, library_ms=None, **VERIFY_LAUNCH_NOTE,
-                     shape=f"{B} rows, {n_ok} past the host pre-checks"))
+                     bound_ms=bnd, bound_by=by, bound_ms_sq_as_mul=bnd_sq, library_ms=None,
+                     **VERIFY_LAUNCH_NOTE, shape=f"{B} rows, {n_ok} past the host pre-checks"))
     log(f"K3 verify: bit-exact over {B} rows ({int(k3.sum())} valid, {n_ok} computed); "
-        f"{ms:.3f} ms (plain {pms:.1f} ms, bound {bnd:.4f} ms by {by})")
+        f"{ms:.3f} ms (plain {pms:.1f} ms, bound {bnd:.4f} ms by {by} [{bnd_sq:.4f}])")
 
     quorum = corpus.quorum
     packed = tally.compact_step_packed(*args[:3], *args[5:], slot_t, tables, quarters, powers_t,
@@ -654,8 +693,9 @@ def kernel_phase(card: dict, corpus: Corpus, dev) -> tuple[list[dict], dict]:
     log(f"K4 tally: bit-exact ({int(maj_p.sum())} slots at quorum); {ms:.4f} ms "
         f"({one_ms:.4f} ms in a window around one launch; plain {pms:.3f} ms, index_add_ + compare {lib_ms:.4f} ms, bound {bnd:.6f} ms by {by})")
     rows[-1].update(small_kernel_split(run_tally))
+    k3_ms = next(r["ms"] for r in rows if r["name"].startswith("K3"))
     k3_batch = dict(args=args, n=n, n_ok=n_ok, mask=k3, keys=pubs + [BAD_PUB] + [bytes(32)] * 15,
-                    k3_ms=rows[2]["ms"], slot=slot_t, prior=prior_t, quorum=quorum, powers=powers_t,
+                    k3_ms=k3_ms, slot=slot_t, prior=prior_t, quorum=quorum, powers=powers_t,
                     special=dict(s_ge_l=0, off_curve=40, dup=n - 1, identity_r1=n,
                                  identity_r_p1=n + 1, padding=n + 2))
     return rows, k3_batch
@@ -754,6 +794,10 @@ def quarter_checks(card: dict, k3: dict, dev, ptx: dict) -> dict:
                 "k3_bound_ms": bound_ms(card, 0, n_ok * ed25519_batch.mads_per_signature(r))[0],
                 "k5_bound_ms": bound_ms(card, 0, n_ok * ed25519_batch.mads_per_signature(
                     r, four_lanes=False))[0],
+                "k3_bound_ms_sq_as_mul": bound_ms(card, 0, n_ok * ed25519_batch.mads_per_signature(
+                    r, sq_as_mul=True))[0],
+                "k5_bound_ms_sq_as_mul": bound_ms(card, 0, n_ok * ed25519_batch.mads_per_signature(
+                    r, four_lanes=False, sq_as_mul=True))[0],
                 "registers": {k: kr.get(k, {}).get("registers") for k in names},
                 "stack_bytes": {k: kr.get(k, {}).get("stack_bytes") for k in names},
                 "spill_bytes": {k: kr.get(k, {}).get("spill_bytes") for k in names}}
@@ -961,9 +1005,12 @@ def fused_rows(card: dict, k3: dict, dev) -> tuple[list[dict], dict]:
         n_ok = int(a[7].sum())
         out_bytes = rung * 4 + (pr.numel() * pr.element_size() if partial else
                                 tally.packed_size(0, S, wide) * 4)
-        bnd, by = bound_ms(card, nbytes(*a, sl, pw) + (0 if partial else nbytes(pr)) + out_bytes
-                           + nbytes(curve.device_base_quarters(dev, 25)),
-                           n_ok * ed25519_batch.mads_per_signature(25) + rung + (0 if partial else S))
+        f_bytes = (nbytes(*a, sl, pw) + (0 if partial else nbytes(pr)) + out_bytes
+                   + nbytes(curve.device_base_quarters(dev, 25)))
+        bnd, by = bound_ms(card, f_bytes, n_ok * ed25519_batch.mads_per_signature(25) + rung
+                           + (0 if partial else S))
+        bnd_sq = bound_ms(card, f_bytes, n_ok * ed25519_batch.mads_per_signature(25, sq_as_mul=True) + rung
+                          + (0 if partial else S))[0]
         t0 = time.perf_counter()
         if partial:
             tally.tally_partial_plain(ed25519_batch.verify_kernel_gather_plain(*a), sl, a[2], pw, S)
@@ -982,7 +1029,7 @@ def fused_rows(card: dict, k3: dict, dev) -> tuple[list[dict], dict]:
             source="txflow_tpu_torch/csrc/verify.cu, txflow_tpu_torch/csrc/tally.cuh",
             replaces="txflow_tpu/parallel/mesh.py:114" if partial else "txflow_tpu/ops/tally.py:114",
             launch_name=fused_kernel(25, wide, partial), max_abs_err=err, ms=f_ms, plain_ms=pms,
-            bound_ms=bnd, bound_by=by, library_ms=None, epilogue_ms=f_ms - v_ms,
+            bound_ms=bnd, bound_by=by, bound_ms_sq_as_mul=bnd_sq, library_ms=None, epilogue_ms=f_ms - v_ms,
             epilogue_body_ms=epi_body, verify_alone_ms=v_ms, **VERIFY_LAUNCH_NOTE,
             shape=f"{rung} rows, {n_ok} past the host pre-checks, {S} slots",
             time_note="ms: the fused call (verify + tally, two kernels); epilogue_ms: it "
@@ -1804,17 +1851,19 @@ def k3_rung_rows(card: dict, k3: dict, dev, launches_by_rung: dict) -> list[dict
                             50 if rung <= 4096 else 10)
         pms = cuda_ms(lambda: ed25519_batch.verify_kernel_gather_plain(*args), 1)
         n_ok = int(ok.sum())
-        bnd, by = bound_ms(card, nbytes(*args) + nbytes(curve.device_base_quarters(dev, 25))
-                           + rung * 4, n_ok * ed25519_batch.mads_per_signature(25))
+        r_bytes = nbytes(*args) + nbytes(curve.device_base_quarters(dev, 25)) + rung * 4
+        bnd, by = bound_ms(card, r_bytes, n_ok * ed25519_batch.mads_per_signature(25))
+        bnd_sq = bound_ms(card, r_bytes, n_ok * ed25519_batch.mads_per_signature(25, sq_as_mul=True))[0]
         rows.append(dict(name=f"K3 ed25519 verify at rung {rung} (txf_verify, lanes phase)",
                          route="cuda", source="txflow_tpu_torch/csrc/verify.cu",
                          replaces="txflow_tpu/ops/ed25519_batch.py:384",
                          launches=launches_by_rung[rung],
                          max_abs_err=int((got.int() - want.int()).abs().max()), ms=ms,
-                         plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=None,
-                         **VERIFY_LAUNCH_NOTE, shape=f"{rung} rows, {n_ok} past the host pre-checks"))
+                         plain_ms=pms, bound_ms=bnd, bound_by=by, bound_ms_sq_as_mul=bnd_sq,
+                         library_ms=None, **VERIFY_LAUNCH_NOTE,
+                         shape=f"{rung} rows, {n_ok} past the host pre-checks"))
         log(f"K3 at rung {rung}: bit-exact; {ms:.4f} ms (plain {pms:.1f} ms, bound {bnd:.5f} ms "
-            f"by {by}); {launches_by_rung[rung]} launches in the lanes phase")
+            f"by {by} [{bnd_sq:.5f}]); {launches_by_rung[rung]} launches in the lanes phase")
     return rows
 
 
@@ -1949,8 +1998,9 @@ def k6_rows(card: dict, com: "CommitteeCorpus", dev, fe_radix: int = 25,
         ms = cuda_ms_window(lambda: ed25519_batch.verify_kernel_gather(*args, fe_radix=fe_radix),
                             max(10, min(200, 65536 // rung)))
         pms = cuda_ms(lambda: ed25519_batch.verify_kernel_gather_plain(*args, fe_radix=fe_radix), 2)
-        bnd, by = bound_ms(card, nbytes(*args) + nbytes(curve.device_base_quarters(dev, fe_radix))
-                           + rung * 4, n_ok * ed25519_batch.mads_per_signature(fe_radix))
+        r_bytes = nbytes(*args) + nbytes(curve.device_base_quarters(dev, fe_radix)) + rung * 4
+        bnd, by = bound_ms(card, r_bytes, n_ok * ed25519_batch.mads_per_signature(fe_radix))
+        bnd_sq = bound_ms(card, r_bytes, n_ok * ed25519_batch.mads_per_signature(fe_radix, sq_as_mul=True))[0]
         ab = None
         if rung == 8:  # the A/B in turns (K6, K5, K5, K6): quarter lanes against coordinate lanes
             k5_args = (args[0], args[1], tables[args[2].long()].contiguous(), *args[5:])
@@ -1972,11 +2022,12 @@ def k6_rows(card: dict, com: "CommitteeCorpus", dev, fe_radix: int = 25,
                              if fe_radix == 13 else ""),
                          replaces="txflow_tpu/committee/certverify.py:43",
                          max_abs_err=int((k6.int() - p6.int()).abs().max()), ms=ms, plain_ms=pms,
-                         bound_ms=bnd, bound_by=by, library_ms=None, rung=rung, **VERIFY_LAUNCH_NOTE,
+                         bound_ms=bnd, bound_by=by, bound_ms_sq_as_mul=bnd_sq, library_ms=None, rung=rung,
+                         **VERIFY_LAUNCH_NOTE,
                          shape=f"{rung} rows, {n_ok} past the host pre-checks, V={COM_SIZE}",
                          **({"ab_k5_coord_lanes": ab} if ab else {})))
         log(f"K6{' radix 13' if fe_radix == 13 else ''} rung {rung}: bit-exact ({int(k6h.sum())} valid of {rung}); {ms:.4f} ms "
-            f"(plain {pms:.1f} ms, bound {bnd:.5f} ms by {by})")
+            f"(plain {pms:.1f} ms, bound {bnd:.5f} ms by {by} [{bnd_sq:.5f}])")
     return rows
 
 
@@ -2494,17 +2545,19 @@ def mesh_rows(card: dict, corpus: Corpus, mesh: Mesh, fb: FirstBatch, launches: 
     n_ok = int(fb.tables.pre_ok[:bs].sum())
     ms = cuda_ms_window(lambda: ed25519_batch.verify_kernel(*k5_args), 10)
     pms = cuda_ms(lambda: ed25519_batch.verify_kernel_plain(*k5_args), 2)
-    bnd, by = bound_ms(card, nbytes(*k5_args, curve.device_base_quarters(dev0)[0]) + bs * 4,
-                       n_ok * ed25519_batch.mads_per_signature(25, four_lanes=False))
+    k5_bytes = nbytes(*k5_args, curve.device_base_quarters(dev0)[0]) + bs * 4
+    bnd, by = bound_ms(card, k5_bytes, n_ok * ed25519_batch.mads_per_signature(25, four_lanes=False))
+    bnd_sq = bound_ms(card, k5_bytes, n_ok * ed25519_batch.mads_per_signature(25, four_lanes=False,
+                                                                              sq_as_mul=True))[0]
     rows.append(dict(name="K5 ed25519 verify over per-vote tables (txf_verify_tables, four lanes a row by "
                           "coordinate)", route="cuda",
                      source="txflow_tpu_torch/csrc/verify.cu",
                      replaces="txflow_tpu/ops/ed25519_batch.py:146", launches=launches["verify_tables"],
                      max_abs_err=int((k5.int() - p5.int()).abs().max()), ms=ms, plain_ms=pms,
-                     bound_ms=bnd, bound_by=by, library_ms=None,
+                     bound_ms=bnd, bound_by=by, bound_ms_sq_as_mul=bnd_sq, library_ms=None,
                      shape=f"{bs} rows (one shard), {n_ok} past the host pre-checks", **COORD_NOTE))
     log(f"K5 verify_tables: bit-exact over {bs} rows; {ms:.3f} ms (plain {pms:.1f} ms, "
-        f"bound {bnd:.4f} ms by {by})")
+        f"bound {bnd:.4f} ms by {by} [{bnd_sq:.4f}])")
 
     # K7 partial tally of each shard (K3's valid, per-validator powers)
     c = fb.compact
@@ -2634,20 +2687,21 @@ def mesh_rows(card: dict, corpus: Corpus, mesh: Mesh, fb: FirstBatch, launches: 
     k_cards = len(cards)
     scaled = dict(card, hbm_bytes_per_s=card["hbm_bytes_per_s"] * k_cards,
                   imad_per_s=card["imad_per_s"] * k_cards)
-    bnd, by = bound_ms(scaled, nbytes(*args) + nbytes(consts[0][0], consts[1][0], powers, prior)
-                       + n * (bs + 2 * S) * 4, n_ok * ed25519_batch.mads_per_signature(25))
+    s_bytes = nbytes(*args) + nbytes(consts[0][0], consts[1][0], powers, prior) + n * (bs + 2 * S) * 4
+    bnd, by = bound_ms(scaled, s_bytes, n_ok * ed25519_batch.mads_per_signature(25))
+    bnd_sq = bound_ms(scaled, s_bytes, n_ok * ed25519_batch.mads_per_signature(25, sq_as_mul=True))[0]
     rows.append(dict(name="K7 sharded fused step (per shard txf_verify_tally's partial form, "
                           "peer copies, one txf_reduce_quorum)", route="cuda",
                      launches_per_step=ops["launches"], copies_per_step=ops["copies"],
                      ctypes_calls_per_step=sum(ops["launches"].values()),
                      source="txflow_tpu_torch/parallel/mesh.py", replaces="txflow_tpu/parallel/mesh.py:114",
                      launches=steps, max_abs_err=int((got - want).abs().max()), ms=ms, plain_ms=pms,
-                     bound_ms=bnd, bound_by=by, library_ms=None, cards=k_cards,
+                     bound_ms=bnd, bound_by=by, bound_ms_sq_as_mul=bnd_sq, library_ms=None, cards=k_cards,
                      shape=f"{MESH_BATCH} rows = {n} shards x {bs} on {k_cards} card(s), {S} slots",
                      time_note="window over 5 steps, events on every card, slowest card; "
                                "plain: one host-clock run"))
     log(f"K7 sharded step: bit-exact over {MESH_BATCH} rows on {k_cards} card(s); {ms:.3f} ms "
-        f"(plain {pms:.1f} ms, bound {bnd:.4f} ms by {by})")
+        f"(plain {pms:.1f} ms, bound {bnd:.4f} ms by {by} [{bnd_sq:.4f}])")
     return rows
 
 
@@ -2775,7 +2829,7 @@ def k8_rows(card: dict, k3: dict, dev, launches: dict, ptx: dict) -> tuple[list[
         require([fe13.limbs_to_int(r) for r in kh[i]] == want, f"K8 row {i} != ints")
     ms = cuda_ms_window(lambda: fe13.fe13_ops(a, b), 50)
     pms = cuda_ms(lambda: fe13.fe13_ops_plain(a, b), 3)
-    bnd, by = bound_ms(card, nbytes(a, b, k), N_FE * fe13.MULS_PER_FE_OPS * fe13.MADS_PER_MUL)
+    bnd, by = bound_ms(card, nbytes(a, b, k), N_FE * field.mads(13, fe13.MULS_PER_FE_OPS, fe13.SQS_PER_FE_OPS))
     rows.append(dict(name="K8 fe25519_13 radix-2^13 field ops (fe_ops kernel of verify13 alone; "
                           "runs inside txf_verify of verify13 on the radix-13 path)",
                      route="cuda", source="txflow_tpu_torch/csrc/fe25519_13.cuh",
@@ -2804,7 +2858,7 @@ def k8_rows(card: dict, k3: dict, dev, launches: dict, ptx: dict) -> tuple[list[
     pms = cuda_ms(lambda: curve.dsm_encode_plain(s_nib, h_nib, vidx, tables13, fe_radix=13), 2)
     bnd, by = bound_ms(card, nbytes(s_nib, h_nib, vidx, tables13, *k2,
                                     curve.device_base_quarters(dev, 13)[0]),
-                       N_DSM * curve.MULS_PER_DSM_ENCODE * fe13.MADS_PER_MUL)
+                       N_DSM * field.mads(13, curve.MULS_PER_DSM_ENCODE, curve.SQS_PER_DSM_ENCODE))
     rows.append(dict(name="K2 over K8: double-scalar multiply + encode (dsm_encode kernel of verify13 alone, "
                           "four lanes a row by coordinate; the formulas run inside txf_verify of verify13)",
                      route="cuda", **COORD_NOTE,
@@ -2851,6 +2905,8 @@ def k8_rows(card: dict, k3: dict, dev, launches: dict, ptx: dict) -> tuple[list[
     ab_line = {"rows": MAX_BATCH, "k3_ms": [ab[0], ab[3]], "verify13_ms": [ab[1], ab[2]],
                "verify13_over_k3": ms / ((ab[0] + ab[3]) / 2),
                "k3_bound_ms": bound_ms(card, 0, n_ok * ed25519_batch.mads_per_signature(25))[0],
+               "k3_bound_ms_sq_as_mul": bound_ms(card, 0, n_ok * ed25519_batch.mads_per_signature(
+                   25, sq_as_mul=True))[0],
                "verify13_bound_ms": bnd13,
                "registers": {lib: reg[lib].get("registers") for lib in reg},
                "stack_bytes": {lib: reg[lib].get("stack_bytes") for lib in reg},

@@ -1,6 +1,6 @@
 // Batched ed25519 verification: over device-resident epoch tables (K3)
-// and over per-vote gathered tables (K5), plus two kernels that expose K1
-// and K2 alone for checking on the card.
+// and over per-vote gathered tables (K5), plus kernels that expose K1 (two:
+// frozen field ops, raw products) and K2 alone for checking on the card.
 //
 // Replaces: txflow_tpu/ops/ed25519_batch.py:verify_kernel_gather (K3; and,
 // inside it, curve.double_scalar_mul_indexed + curve.ext_encode over the
@@ -301,7 +301,8 @@ __device__ __forceinline__ void fe_shfl(fe out, const fe v, int src, unsigned ma
 // + [s_w]B, + [h_w]A'. A formula is two rounds, one field product a lane
 // in each:
 //   doubling round 1 (one shuffle: lane 0 takes Y, lane 3 takes X):
-//     lane 0 (X+Y)^2, lane 1 Y^2, lane 2 2 Z^2, lane 3 X^2;
+//     lane 0 (X+Y)^2, lane 1 Y^2, lane 2 2 Z^2, lane 3 X^2, each by fe_sq
+//     (a doubling is the same on every lane of a warp: no divergence);
 //   addition round 1 (one xor-1 shuffle: lane 0 takes Y, 1 X, 2 T, 3 Z;
 //     lane c loads coordinate c^1 of the PNiels entry, so a group reads
 //     one contiguous row): lane 0 A = (Y-X)(Y2-X2), lane 1 B =
@@ -353,16 +354,16 @@ txf_coord_dsm_kernel(const uint8_t* __restrict__ s_nib,
     for (int k = 0; k < 6; ++k) {  // 4 doublings, + [s_w]B, + [h_w]A'
       const bool dbl = k < 4;
       // round 1: one product a lane
-      fe r, a, b;
+      fe r, a, b, q;
       fe_shfl(r, p, dbl ? (c == 0 ? 1 : (c == 3 ? 0 : c)) : (c ^ 1), mask);
-      if (dbl) {
+      if (dbl) {  // a square on every lane
         if (c == 0)
           fe_add(a, p, r);  // X + Y
         else if (c == 3)
           fe_copy(a, r);  // X
         else
           fe_copy(a, p);  // Y, Z
-        fe_copy(b, a);
+        fe_sq(q, a);
       } else {
         if (c == 0)
           fe_sub(a, r, p);  // Y - X
@@ -380,9 +381,8 @@ txf_coord_dsm_kernel(const uint8_t* __restrict__ s_nib,
 #pragma unroll
           for (int l = 0; l < TXF_NLIMB; ++l) b[l] = row[l];
         }
+        fe_mul(q, a, b);
       }
-      fe q;
-      fe_mul(q, a, b);
       if (c == (dbl ? 2 : 3)) fe_mul_small(q, q, 2);  // C = 2 Z^2, D = 2 Z Z2
       // round 2: the four products on every lane
       fe q0, q1, q2, q3, E, F, G, H;
@@ -468,6 +468,33 @@ __global__ void txf_fe_ops_kernel(const int32_t* __restrict__ a,
   fe_freeze(r, fa);
 #pragma unroll
   for (int l = 0; l < TXF_NLIMB; ++l) o[4 * TXF_NLIMB + l] = r[l];
+}
+
+// Per element: the raw carried limbs (not frozen) of mul(a, b), sq(a) and
+// mul_small(a, 2), written as out[i][3][TXF_NLIMB]: the three products
+// every verify kernel chains, checked limb for limb on inputs up to the
+// field's input bound (K1's check on the bound edges).
+__global__ void txf_fe_prod_kernel(const int32_t* __restrict__ a,
+                                   const int32_t* __restrict__ b,
+                                   int32_t* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  fe fa, fb, t;
+#pragma unroll
+  for (int l = 0; l < TXF_NLIMB; ++l) {
+    fa[l] = a[(int64_t)i * TXF_NLIMB + l];
+    fb[l] = b[(int64_t)i * TXF_NLIMB + l];
+  }
+  int32_t* o = out + (int64_t)i * 3 * TXF_NLIMB;
+  fe_mul(t, fa, fb);
+#pragma unroll
+  for (int l = 0; l < TXF_NLIMB; ++l) o[l] = t[l];
+  fe_sq(t, fa);
+#pragma unroll
+  for (int l = 0; l < TXF_NLIMB; ++l) o[TXF_NLIMB + l] = t[l];
+  fe_mul_small(t, fa, 2);
+#pragma unroll
+  for (int l = 0; l < TXF_NLIMB; ++l) o[2 * TXF_NLIMB + l] = t[l];
 }
 
 static inline int grid_for(int n, int threads) {
@@ -599,6 +626,14 @@ int txf_fe_ops(const int32_t* a, const int32_t* b, int32_t* out, int n,
                void* stream) {
   if (n <= 0) return 0;
   txf_fe_ops_kernel<<<grid_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
+      a, b, out, n);
+  return (int)cudaGetLastError();
+}
+
+int txf_fe_prod(const int32_t* a, const int32_t* b, int32_t* out, int n,
+                void* stream) {
+  if (n <= 0) return 0;
+  txf_fe_prod_kernel<<<grid_for(n, 128), 128, 0, (cudaStream_t)stream>>>(
       a, b, out, n);
   return (int)cudaGetLastError();
 }

@@ -59,6 +59,7 @@ _VERIFY_FNS = {
     "txf_verify_tables": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "txf_dsm_encode": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P],
     "txf_fe_ops": [_P, _P, _P, _I, _P],
+    "txf_fe_prod": [_P, _P, _P, _I, _P],
 }
 
 # library -> (source, extra nvcc flags, {C entry point: argtypes}). One
@@ -85,7 +86,7 @@ LIBS = {
 # under their own names, by field, width and form: verify[13]_tally[64]
 # (the quorum form, one card) and verify[13]_partial[64] (a shard's
 # partial, on a mesh).
-KERNELS = {"fe_ops": "verify", "dsm_encode": "verify", "verify": "verify",
+KERNELS = {"fe_ops": "verify", "fe_prod": "verify", "dsm_encode": "verify", "verify": "verify",
            "verify_tables": "verify", "verify_tally": "verify", "verify_tally64": "verify",
            "verify_partial": "verify", "verify_partial64": "verify",
            "fe13_ops": "verify13", "dsm_encode13": "verify13", "verify13": "verify13",

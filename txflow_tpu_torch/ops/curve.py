@@ -59,6 +59,15 @@ COORD_LANES = 4
 MULS_PER_COORD_WINDOW = (4 + 2) * 2 * COORD_LANES
 MULS_PER_COORD_DSM_ENCODE = NWINDOWS * MULS_PER_COORD_WINDOW + MULS_PER_ENCODE
 MULS_CHAIN_COORD_DSM_ENCODE = NWINDOWS * MULS_PER_COORD_WINDOW // COORD_LANES + MULS_PER_ENCODE
+# of those products, the squarings: four a doubling (X^2, Y^2, Z^2,
+# (X+Y)^2; in the coordinate split one a lane in round 1), none in an
+# addition or a combine round, and the inversion chain's 254
+SQS_PER_DOUBLINGS = 4 * 4
+SQS_PER_ENCODE = 254
+SQS_PER_DSM_ENCODE = NWINDOWS * SQS_PER_DOUBLINGS + SQS_PER_ENCODE
+SQS_PER_QUARTER_DSM_ENCODE = QUARTERS * (
+    QUARTER_WINDOWS * SQS_PER_DOUBLINGS - SQS_PER_DOUBLINGS
+) + SQS_PER_ENCODE
 
 
 def ext_identity(batch_shape, device=None, fe_radix: int = 25):

@@ -426,7 +426,7 @@ def verify_kernel_gather(
     return out.to(torch.bool)
 
 
-def mads_per_signature(fe_radix: int = 25, four_lanes: bool = True) -> int:
+def mads_per_signature(fe_radix: int = 25, four_lanes: bool = True, sq_as_mul: bool = False) -> int:
     """Integer multiply-adds of one signature that passed the host
     pre-checks (rows that failed them return at once): the four-lane
     ``txf_verify`` (K3, K6, by scalar quarter) by default; with
@@ -436,6 +436,10 @@ def mads_per_signature(fe_radix: int = 25, four_lanes: bool = True) -> int:
     by coordinate and issue ``curve.MULS_PER_COORD_DSM_ENCODE`` products,
     a lane's chain ``curve.MULS_CHAIN_COORD_DSM_ENCODE``; their bound keeps
     the one-lane count, so that times before and after that redesign read
-    against one yardstick."""
-    muls = curve.MULS_PER_QUARTER_DSM_ENCODE if four_lanes else curve.MULS_PER_DSM_ENCODE
-    return muls * field.ops(fe_radix).MADS_PER_MUL
+    against one yardstick. Squarings cost the field's ``MADS_PER_SQ``, or
+    with ``sq_as_mul`` a full product (``field.mads``)."""
+    if four_lanes:
+        muls, sqs = curve.MULS_PER_QUARTER_DSM_ENCODE, curve.SQS_PER_QUARTER_DSM_ENCODE
+    else:
+        muls, sqs = curve.MULS_PER_DSM_ENCODE, curve.SQS_PER_DSM_ENCODE
+    return field.mads(fe_radix, muls, sqs, sq_as_mul)

@@ -47,6 +47,16 @@ _MUL_FACTOR = torch.from_numpy(
 # integer multiply-adds of one fe_mul in the CUDA kernel: the 10x10
 # products plus the 2*f (odd limbs) and 19*g pre-scalings
 MADS_PER_MUL = NLIMB * NLIMB + 5 + NLIMB
+# and of one fe_sq (ref10's squaring): 55 products (each limb pair once)
+# plus its 13 prescalings (2 f_i for i < 8; 19 f_6, 19 f_8; 38 f_5, 38 f_7,
+# 38 f_9). The plain fe_sq below is fe_mul(f, f): the same column sums
+MADS_PER_SQ = 55 + 13
+
+# the largest limbs fe_mul and fe_sq accept: 3 carried units, floor(3 *
+# 1.1 * 2^(W - 1)), 1.65*2^26 / 1.65*2^25 per even / odd limb
+BOUND3 = (33 << (W - 1)) // 10
+# fe_freeze's input bound: 2 carried units, 1.1*2^26 / 1.1*2^25
+BOUND2 = (22 << (W - 1)) // 10
 
 
 # ---------------------------------------------------------------------------
@@ -180,8 +190,10 @@ def fe_inv(z):
     return fe_mul(_pow2k(z2_250_0, 5), z11)
 
 
-# mul, sq and the 265 of the inversion chain (the kernel's fe_ops work)
+# mul, sq and the 265 of the inversion chain (the kernel's fe_ops work),
+# of them squarings: sq and the chain's 254
 MULS_PER_FE_OPS = 2 + 265
+SQS_PER_FE_OPS = 1 + 254
 
 
 def fe_from_bytes(b: torch.Tensor) -> torch.Tensor:
@@ -219,6 +231,71 @@ def fe_ops_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         fe_freeze(a64),
     ]
     return torch.stack(outs, -2).to(torch.int32)
+
+
+def fe_prod_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[n, 10] int32 inputs (limbs within 3 carried units, ``BOUND3``) ->
+    [n, 3, 10] int32 raw carried limbs, not frozen: fe_mul(a, b), fe_sq(a)
+    and fe_mul_small(a, 2), the three products the verify kernels chain."""
+    a64, b64 = a.to(torch.int64), b.to(torch.int64)
+    return torch.stack([fe_mul(a64, b64), fe_sq(a64), fe_mul_small(a64, 2)], -2).to(torch.int32)
+
+
+def fe_prod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K1's products alone, limb for limb: the CUDA kernel ``txf_fe_prod``
+    on a card, its plain version on the CPU. a, b: int32 [n, 10] limbs
+    within 3 carried units (``bound_edge_limbs`` gives the edges)."""
+    if a.device.type == "cpu":
+        return fe_prod_plain(a, b)
+    _lib.check_all((a, torch.int32, (-1, NLIMB), "a"), (b, torch.int32, (a.shape[0], NLIMB), "b"))
+    out = torch.empty((a.shape[0], 3, NLIMB), dtype=torch.int32, device=a.device)
+    _lib.launch(
+        "fe_prod", "txf_fe_prod", out, a.shape[0], a.data_ptr(), b.data_ptr(),
+        out.data_ptr(), a.shape[0],
+    )
+    return out
+
+
+EDGE_KINDS = ("canonical", "plus3", "minus3", "signs3", "sums")
+
+
+def bound_edge_limbs(rng: np.random.Generator, n: int, kind: str) -> tuple[np.ndarray, np.ndarray]:
+    """n pairs (a, b) of int32 [n, 10] limb vectors of one kind of input
+    that the field products accept: ``canonical`` (random values < p, 0
+    and p - 1 first); ``plus3`` / ``minus3`` (every limb of a at +3 / -3
+    units, b at either sign's edge or random within 3 units); ``signs3``
+    (every limb at 3 units, random signs, or uniform within them);
+    ``sums`` (X + Y of two carried values, as ge_double squares them)."""
+    if kind == "canonical":
+        vals = [0, P_INT - 1] + [int.from_bytes(rng.bytes(32), "little") % P_INT
+                                 for _ in range(2 * n - 2)]
+        v = np.stack([int_to_limbs(x) for x in vals[: 2 * n]])
+        return v[:n], v[n:]
+
+    def signs(m):
+        return rng.choice(np.array([-1, 1]), (m, NLIMB))
+
+    def within(m):
+        return rng.integers(-BOUND3, BOUND3 + 1, (m, NLIMB))
+
+    if kind in ("plus3", "minus3"):
+        a = np.broadcast_to(BOUND3 * (1 if kind == "plus3" else -1), (n, NLIMB))
+        b = np.concatenate([BOUND3 * signs(n // 2), within(n - n // 2)])
+        b[:2] = (BOUND3, -BOUND3)
+    elif kind == "signs3":
+        h = n // 2
+        a = np.concatenate([BOUND3 * signs(h), within(n - h)])
+        b = np.concatenate([BOUND3 * signs(h), within(n - h)])
+    elif kind == "sums":
+        def carried(m):  # fe_mul outputs of random values: 1 carried unit
+            x, y = bound_edge_limbs(rng, m, "canonical")
+            return fe_mul(torch.from_numpy(x).long(), torch.from_numpy(y).long()).numpy()
+
+        a = carried(n) + carried(n)
+        b = carried(n) + carried(n)
+    else:
+        raise ValueError(f"unknown kind {kind!r}")
+    return np.ascontiguousarray(a, np.int32), np.ascontiguousarray(b, np.int32)
 
 
 def fe_ops(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -53,8 +53,12 @@ OFFSET_P_LIMBS = 128 * P_LIMBS  # dominates any normalized subtrahend limb
 # products, the x608 fold of the 20 high columns, and the x608 wrap of
 # each of the seven carry passes
 MADS_PER_MUL = NLIMB * NLIMB + NLIMB + 7
-# mul, sq and the 265 of the inversion chain (the kernel's fe_ops work)
+# fe_sq is fe_mul(f, f) in this field's kernel: a squaring costs a product
+MADS_PER_SQ = MADS_PER_MUL
+# mul, sq and the 265 of the inversion chain (the kernel's fe_ops work),
+# of them squarings: sq and the chain's 254
 MULS_PER_FE_OPS = 2 + 265
+SQS_PER_FE_OPS = 1 + 254
 
 # 13-bit repack: limb j spans bytes 13j // 8 .. +2 at bit offset 13j % 8
 _BYTE0 = (13 * np.arange(NLIMB)) // 8

@@ -44,3 +44,13 @@ def ops(fe_radix: int):
         return FIELDS[fe_radix]
     except KeyError:
         raise ValueError(f"fe_radix={fe_radix!r}: expected 25 or 13") from None
+
+
+def mads(fe_radix: int, muls: int, sqs: int, sq_as_mul: bool = False) -> int:
+    """Integer multiply-adds of ``muls`` field products of which ``sqs``
+    are squarings, in the field of ``fe_radix`` (a bound's count of
+    operations). ``sq_as_mul`` counts every squaring as a full product:
+    the yardstick the bounds used before the radix-2^25.5 field had a
+    dedicated squaring, kept beside them for comparison."""
+    F = ops(fe_radix)
+    return (muls - sqs) * F.MADS_PER_MUL + sqs * (F.MADS_PER_MUL if sq_as_mul else F.MADS_PER_SQ)

@@ -6,6 +6,7 @@ lists, then run from the repo root:
     mkdir -p txflow_tpu_torch/_build/parent
     git archive PARENT_COMMIT | tar -x -C txflow_tpu_torch/_build/parent
     python3 -m txflow_tpu_torch.parent_ab --launch-ab txflow_tpu_torch/_build/parent
+    python3 -m txflow_tpu_torch.parent_ab --kernels-ab txflow_tpu_torch/_build/parent
     python3 -m txflow_tpu_torch.parent_ab --fingerprints txflow_tpu_torch/_build/parent
 
 ``--launch-ab PARENT`` times the small kernels' wrappers (K4, the K7
@@ -13,6 +14,23 @@ partial, reduce and ring hop, and torch.add beside them) of the checkout
 at PARENT and of this one in turns (parent, this, this, parent), one
 process each that imports its tree's package and builds its tree's tally
 library; writes chiprun_out/parent_ab_launch.json.
+
+``--kernels-ab PARENT`` times the verify library's kernels through their
+wrappers -- K1 ``fe_ops`` (4096 elements), K3 at rungs 64, 256, 4096 and
+16384, K6 at rungs 8 and 16384 (a 32-key committee's tables), K5 (16384
+rows), K2 (256 pairs) and the fused K7 partial (4096 rows, 4096 slots) --
+of the checkout at PARENT and of this one in turns (parent, this, this,
+parent), one process each that builds its tree's verify library alone, on
+the same seeded inputs (random nibbles over seeded keys; R is the plain
+version's encoding of each row's point, every 8th row's corrupted). Each
+process also launches each kernel's C entry once into zeroed buffers of
+its own; the first launch's points buffers, K2's y and parity, K1's
+output, every mask and the K7 partial must be bitwise equal between the
+trees (the run raises otherwise). Beside the times: each tree's ptxas
+registers and spills, and the SASS of its field (instructions of one
+product, one squaring and one mul_small in probe kernels built from the
+tree's fe25519.cuh, and of every kernel of its verify library, by
+``cuobjdump -sass``); writes chiprun_out/parent_ab_kernels.json.
 
 ``--fingerprints PARENT`` runs the default run of ``chip_smoke.py`` of
 the checkout at PARENT and of this one, one process each, and requires
@@ -101,6 +119,279 @@ def launch_only() -> None:
           flush=True)
 
 
+K3_RUNGS = (64, 256, 4096, 16384)
+K6_RUNGS = (8, 16384)
+KERNEL_ROWS = 16384
+
+
+def kernel_inputs(cs, dev) -> dict:
+    """The kernel A/B's inputs, made from a seed by numpy and the tree's
+    host code (identical in both trees; their digest is compared): 16384
+    rows of random nibbles over 16 seeded keys (K3, K5, K2, K7) and over a
+    32-key committee (K6), 1 row in 16 failing its pre-checks; R and its
+    sign the plain version's encoding of each row's point, so the rows
+    verify, except every 8th row's, whose R has a flipped byte."""
+    import numpy as np
+    import torch
+
+    from txflow_tpu_torch.crypto import ed25519 as host_ed
+    from txflow_tpu_torch.ops import curve, ed25519_batch, fe
+
+    rng = np.random.default_rng(cs.SEED + 31)
+    n = KERNEL_ROWS
+
+    def T(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    s_nib = T(rng.integers(0, 16, (n, 64), dtype=np.uint8))
+    h_nib = T(rng.integers(0, 16, (n, 64), dtype=np.uint8))
+    pre_ok = np.ones(n, bool)
+    pre_ok[::16] = False
+    sets = {}
+    for name, v in (("k3", 16), ("k6", 32)):
+        keys = [host_ed.public_key_from_seed(rng.bytes(32)) for _ in range(v)]
+        epoch = ed25519_batch.EpochTables(keys, fe_radix=25)
+        tables, quarters = epoch.device_tables(dev), epoch.device_quarter_tables(dev)
+        vidx = T(rng.integers(0, v, n).astype(np.int32))
+        y, parity = curve.dsm_encode_plain(s_nib, h_nib, vidx, tables)
+        r_y = fe.frozen_to_bytes(y.cpu().numpy())
+        r_y[::8, 3] ^= 0x40
+        sets[name] = (s_nib, h_nib, vidx, tables, quarters, T(r_y),
+                      T(parity.cpu().numpy().astype(np.uint8)), T(pre_ok))
+    vals = [int.from_bytes(rng.bytes(32), "little") & (2**255 - 1) for _ in range(2 * cs.N_FE)]
+    limbs = T(fe.bytes_to_limbs_np(np.stack([np.frombuffer(x.to_bytes(32, "little"), np.uint8)
+                                             for x in vals])))
+    q = n // cs.MESH_SHARDS
+    return {"k3": sets["k3"], "k6": sets["k6"], "fe": (limbs[:cs.N_FE], limbs[cs.N_FE:]),
+            "slot": T(rng.integers(-1, q, q).astype(np.int32)),
+            "powers": T((10 * (1 + np.arange(16) % 4)).astype(np.int32)), "partial_rows": q}
+
+
+def _rows(args, rung: int):
+    """The first ``rung`` rows of a verify argument tuple, the tables whole."""
+    return tuple(a if i in (3, 4) else a[:rung] for i, a in enumerate(args))
+
+
+def _digest(*tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def kernel_outputs(inp, dev) -> dict:
+    """sha256 of what each kernel's C entry writes, launched once into
+    zeroed buffers of the caller (the points of the first launch, then the
+    second launch's output): K3 and K6 at each rung, K5, K2 (points, y,
+    parity), K1 and the fused K7 partial (packed head and partial)."""
+    import torch
+
+    from txflow_tpu_torch.ops import _lib, curve, fe, tally
+
+    base = curve.device_base_quarters(dev, 25)
+    out = {}
+    for name, rungs in (("k3", K3_RUNGS), ("k6", K6_RUNGS)):
+        for rung in rungs:
+            a = _rows(inp[name], rung)
+            points = torch.zeros((rung, 3, fe.NLIMB), dtype=torch.int32, device=dev)
+            mask = torch.zeros((rung,), dtype=torch.int32, device=dev)
+            _lib.launch("verify", "txf_verify", mask, rung, *(t.data_ptr() for t in a[:5]),
+                        a[3].shape[0], base.data_ptr(), *(t.data_ptr() for t in a[5:]),
+                        points.data_ptr(), mask.data_ptr(), rung)
+            out[f"{name}_rung{rung}"] = _digest(points, mask)
+            out[f"{name}_rung{rung}_valid"] = int(mask.sum())
+    a = inp["k3"]
+    n = a[0].shape[0]
+    gathered = a[3][a[2].long()].contiguous()
+    scratch = torch.zeros((n * (3 * fe.NLIMB + 1),), dtype=torch.int32, device=dev)
+    _lib.launch("verify_tables", "txf_verify_tables", scratch, n, a[0].data_ptr(),
+                a[1].data_ptr(), gathered.data_ptr(), base.data_ptr(), *(t.data_ptr() for t in a[5:]),
+                scratch.data_ptr(), scratch[n * 3 * fe.NLIMB:].data_ptr(), n)
+    out["k5"] = _digest(scratch)
+    m = 256
+    scratch = torch.zeros((m * (4 * fe.NLIMB + 1),), dtype=torch.int32, device=dev)
+    _lib.launch("dsm_encode", "txf_dsm_encode", scratch, m, a[0].data_ptr(), a[1].data_ptr(),
+                a[2].data_ptr(), a[3].data_ptr(), a[3].shape[0], base.data_ptr(),
+                scratch.data_ptr(), scratch[m * 3 * fe.NLIMB:].data_ptr(),
+                scratch[m * 4 * fe.NLIMB:].data_ptr(), m)
+    out["k2_points_y_parity"] = _digest(scratch)
+    out["k1_fe_ops"] = _digest(fe.fe_ops(*inp["fe"]))
+    q = inp["partial_rows"]
+    packed, part = tally.compact_step_partial(*_rows(a, q)[:3], *_rows(a, q)[5:], inp["slot"],
+                                              a[3], a[4], inp["powers"], q)
+    out["k7_partial"] = _digest(packed[:q], part)
+    torch.cuda.synchronize()
+    return out
+
+
+def kernel_times(cs, inp) -> dict:
+    """Milliseconds a wrapper call of each kernel: many calls between one
+    pair of CUDA events (``cs.cuda_ms_window``), after warmup."""
+    from txflow_tpu_torch.ops import curve, ed25519_batch, fe, tally
+
+    a = inp["k3"]
+    gathered = a[3][a[2].long()].contiguous()
+    q = inp["partial_rows"]
+    acc = tally.compact_step_partial(*_rows(a, q)[:3], *_rows(a, q)[5:], inp["slot"], a[3], a[4],
+                                     inp["powers"], q)[1]
+    fns = {"k1_fe_ops_4096": (lambda: fe.fe_ops(*inp["fe"]), 50)}
+    for name, rungs in (("k3", K3_RUNGS), ("k6", K6_RUNGS)):
+        for rung in rungs:
+            args = _rows(inp[name], rung)
+            fns[f"{name}_rung{rung}"] = (
+                lambda args=args: ed25519_batch.verify_kernel_gather(*args),
+                200 if rung <= 8 else 50 if rung <= 4096 else 10)
+    fns["k5_16384"] = (lambda: ed25519_batch.verify_kernel(a[0], a[1], gathered, *a[5:]), 10)
+    fns["k2_256"] = (lambda: curve.dsm_encode(a[0][:256], a[1][:256], a[2][:256], a[3]), 10)
+    fns["k7_partial_4096"] = (
+        lambda: tally.compact_step_partial(*_rows(a, q)[:3], *_rows(a, q)[5:], inp["slot"], a[3],
+                                           a[4], inp["powers"], q, partial=acc), 20)
+    return {k: cs.cuda_ms_window(fn, reps) for k, (fn, reps) in fns.items()}
+
+
+def kernels_only() -> None:
+    """``--kernels-only``, run with a tree's root first on ``sys.path``:
+    build that tree's verify library alone, then print one JSON line of
+    its kernels' times, output digests, input digest and ptxas
+    registers."""
+    import torch
+
+    from txflow_tpu_torch.ops import _lib
+
+    _lib.LIBS = {"verify": _lib.LIBS["verify"]}  # build_all then builds verify alone
+    _lib.library("verify")
+    cs = _chip_smoke()
+    dev = torch.device("cuda")
+    inp = kernel_inputs(cs, dev)
+    digest_in = _digest(*inp["k3"], *inp["k6"][2:], *inp["fe"], inp["slot"], inp["powers"])
+    outs = kernel_outputs(inp, dev)
+    print(json.dumps({"tree": str(_lib.PKG.parent), "inputs": digest_in, "outputs": outs,
+                      "ms": kernel_times(cs, inp), "ptxas": cs.ptxas_info()["verify"]}), flush=True)
+
+
+# probe kernels of one field function each, built from a tree's
+# fe25519.cuh: load f and g, t = the function, store t + g; probe_add's
+# function is a copy, so a probe less probe_add is the function's own
+_PROBE = r"""
+#include "fe25519.cuh"
+#define TXF_PROBE(name, body)                                                 \
+  extern "C" __global__ void name(const int32_t* a, const int32_t* b,       \
+                                  int32_t* o) {                             \
+    const int64_t e = (int64_t)blockIdx.x * TXF_NLIMB;                      \
+    a += e;                                                                 \
+    b += e;                                                                 \
+    o += e;                                                                 \
+    fe f, g, h, t;                                                          \
+    for (int l = 0; l < TXF_NLIMB; ++l) {                                   \
+      f[l] = a[l];                                                          \
+      g[l] = b[l];                                                          \
+    }                                                                       \
+    body;                                                                   \
+    fe_add(h, t, g);                                                        \
+    for (int l = 0; l < TXF_NLIMB; ++l) o[l] = h[l];                        \
+  }
+TXF_PROBE(probe_add, fe_copy(t, f))
+TXF_PROBE(probe_mul, fe_mul(t, f, g))
+TXF_PROBE(probe_sq, fe_sq(t, f))
+TXF_PROBE(probe_mul_small, fe_mul_small(t, f, 2))
+"""
+
+
+def _sass_text(path: str) -> str:
+    """``cuobjdump -sass`` of a cubin or shared library."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, "-sass", path], capture_output=True, text=True, check=True).stdout
+
+
+def sass_opcodes(path: str) -> dict:
+    """{function: {opcode: count}} of every function in the SASS of a
+    cubin or shared library (``cuobjdump -sass``), NOPs left out."""
+    import re
+
+    funcs, cur = {}, None
+    for ln in _sass_text(path).splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = funcs.setdefault(m.group(1), {})
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
+        if m and cur is not None and not m.group(1).startswith("NOP"):
+            op = m.group(1)
+            cur[op] = cur.get(op, 0) + 1
+    return funcs
+
+
+def _summary(ops: dict) -> dict:
+    """Instruction counts of one function: total and signed wide
+    multiply-adds (``IMAD.WIDE``: the field's 32x32->64 products;
+    ``IMAD.WIDE.U32`` is address arithmetic and the carry's x19)."""
+    return {"total": sum(ops.values()), "imad_wide": ops.get("IMAD.WIDE", 0),
+            "by_opcode": dict(sorted(ops.items(), key=lambda kv: -kv[1]))}
+
+
+def sass_counts(tree: str) -> dict:
+    """The SASS of a tree's field and kernels: each probe kernel (one
+    fe_mul, fe_sq or fe_mul_small between the same loads, add and stores;
+    ``op`` and ``op_imad_wide`` are its instructions and wide
+    multiply-adds less probe_add's, the function's own), and every kernel
+    and device function of the tree's built verify library."""
+    import tempfile
+
+    from txflow_tpu_torch.ops import _lib
+
+    csrc = os.path.join(tree, "txflow_tpu_torch", "csrc")
+    with tempfile.TemporaryDirectory() as d:
+        src, cubin = os.path.join(d, "probe.cu"), os.path.join(d, "probe.cubin")
+        with open(src, "w") as f:
+            f.write(_PROBE)
+        subprocess.run([_lib._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                        "-std=c++17", "-cubin", "-I", csrc, "-o", cubin, src], check=True,
+                       capture_output=True)
+        probes = {k: _summary(v) for k, v in sass_opcodes(cubin).items() if k.startswith("probe_")}
+        os.makedirs("chiprun_out", exist_ok=True)
+        tag = "this" if os.path.samefile(tree, HERE) else os.path.basename(os.path.normpath(tree))
+        with open(os.path.join("chiprun_out", f"parent_ab_probe_sass_{tag}.txt"), "w") as f:
+            f.write(_sass_text(cubin))
+    base = probes["probe_add"]
+    for p in probes.values():
+        p["op"] = p["total"] - base["total"]
+        p["op_imad_wide"] = p["imad_wide"] - base["imad_wide"]
+    lib = os.path.join(tree, "txflow_tpu_torch", "_build", "libverify.so")
+    kernels = {k: {x: v for x, v in _summary(ops).items() if x != "by_opcode"}
+               for k, ops in sass_opcodes(lib).items()}
+    return {"probes": probes, "library": kernels}
+
+
+def kernels_ab(parent: str) -> dict:
+    """The verify library's kernels of the checkout at PARENT and of this
+    one, in turns (parent, this, this, parent): times, registers and
+    SASS; raises unless every output is bitwise equal between the trees."""
+    runs = []
+    for tree in (parent, HERE, HERE, parent):
+        code = ("import runpy, sys; sys.path.insert(0, %r); sys.argv = [%r, '--kernels-only']; "
+                "runpy.run_path(%r, run_name='__main__')" % (tree, SCRIPT, SCRIPT))
+        got = _run(tree, code)
+        if got["tree"] != tree:
+            raise RuntimeError(f"the run in {tree} imported the package of {got['tree']}")
+        print(json.dumps({"tree": tree, "ms": got["ms"]}), flush=True)
+        runs.append(got)
+    if len({r["inputs"] for r in runs}) != 1:
+        raise RuntimeError("the trees made different inputs")
+    diff = sorted(k for r in runs[1:] for k in r["outputs"] if r["outputs"][k] != runs[0]["outputs"][k])
+    if diff:
+        raise RuntimeError(f"outputs differ from the parent's: {sorted(set(diff))}")
+    ms = {k: {"parent": [runs[0]["ms"][k], runs[3]["ms"][k]], "this": [runs[1]["ms"][k], runs[2]["ms"][k]],
+              "this_over_parent": (runs[1]["ms"][k] + runs[2]["ms"][k]) / (runs[0]["ms"][k] + runs[3]["ms"][k])}
+          for k in runs[0]["ms"]}
+    return {"ms": ms, "outputs": runs[0]["outputs"],
+            "ptxas": {"parent": runs[0]["ptxas"], "this": runs[1]["ptxas"]},
+            "sass": {"parent": sass_counts(parent), "this": sass_counts(HERE)}}
+
+
 def _run(tree: str, code: str) -> dict:
     out = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True, text=True)
     if out.returncode != 0:
@@ -176,7 +467,11 @@ def main(argv: list[str]) -> int:
     if argv == ["--launch-only"]:
         launch_only()
         return 0
+    if argv == ["--kernels-only"]:
+        kernels_only()
+        return 0
     modes = {"--launch-ab": (launch_ab, "launch", "launch_ab_ms"),
+             "--kernels-ab": (kernels_ab, "kernels", "kernels_ab"),
              "--fingerprints": (fingerprints, "fingerprints", "fingerprints")}
     if len(argv) != 2 or argv[0] not in modes:
         print(__doc__, file=sys.stderr)
