@@ -70,12 +70,17 @@
 
 6. The radix-2^13 field (K8) and the int64 tally, between phases 3 and 4
    (the committee's part inside phase 4): K8 under every kernel of the
-   verify13 library -- fe13_ops on 4096 elements, dsm_encode13 on 256
+   verify13 library -- fe13_ops on 4096 elements, K8's raw products
+   (fe13_prod through verify13's txf_fe_prod: mul, sq, mul_small by 2) on
+   4096 normalized inputs at the edges of their bound (every limb 9408, 0,
+   alternating, uniform, fe_add/fe_sub outputs), dsm_encode13 on 256
    pairs, verify13 (K3 over K8) over the whole K3 batch and
    verify_tables13 (K5 over K8) on a sub-batch, bit-exact against their
    plain versions and mask-equal to the radix-25 kernels -- with an A/B
    line of K3 against verify13 at 16384 rows in turns, beside each
-   library's registers and spill bytes from ptxas; the slice again with
+   library's registers and spill bytes from ptxas (every verify13 kernel's
+   too); each K8 row's bound counts a radix-2^13 squaring at
+   fe13.MADS_PER_SQ, bound_ms_sq_as_mul at a product's cost; the slice again with
    EngineConfig(fe_radix=13) (certificate bytes and app digest equal to
    the radix-25 run's), and in the same launch count one radix-13 sharded
    step over the round-robin mesh (equal to the radix-25 packed output)
@@ -2830,14 +2835,46 @@ def k8_rows(card: dict, k3: dict, dev, launches: dict, ptx: dict) -> tuple[list[
     ms = cuda_ms_window(lambda: fe13.fe13_ops(a, b), 50)
     pms = cuda_ms(lambda: fe13.fe13_ops_plain(a, b), 3)
     bnd, by = bound_ms(card, nbytes(a, b, k), N_FE * field.mads(13, fe13.MULS_PER_FE_OPS, fe13.SQS_PER_FE_OPS))
+    bnd_sq = bound_ms(card, nbytes(a, b, k), N_FE * field.mads(13, fe13.MULS_PER_FE_OPS, fe13.SQS_PER_FE_OPS,
+                                                              sq_as_mul=True))[0]
     rows.append(dict(name="K8 fe25519_13 radix-2^13 field ops (fe_ops kernel of verify13 alone; "
                           "runs inside txf_verify of verify13 on the radix-13 path)",
                      route="cuda", source="txflow_tpu_torch/csrc/fe25519_13.cuh",
                      replaces="txflow_tpu/ops/fe13.py:113", launched_in="txf_verify (verify13)",
                      launches=launches["verify13_tally"], max_abs_err=int((k - p).abs().max()), ms=ms,
-                     plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=None,
+                     plain_ms=pms, bound_ms=bnd, bound_by=by, bound_ms_sq_as_mul=bnd_sq, library_ms=None,
                      shape=f"{N_FE} x (mul,sq,sub,inv,freeze)"))
-    log(f"K8 fe13_ops: bit-exact over {N_FE} elements; {ms:.4f} ms (plain {pms:.1f} ms, bound {bnd:.5f} ms by {by})")
+    log(f"K8 fe13_ops: bit-exact over {N_FE} elements; {ms:.4f} ms (plain {pms:.1f} ms, bound {bnd:.5f} ms by {by} "
+        f"[{bnd_sq:.5f} with a squaring at a product's cost])")
+
+    # K8's raw products on the edges of their input bound (fe13_ops above
+    # sees canonical values only): mul, sq and mul_small(., 2), unfrozen,
+    # limb for limb against the plain version, through verify13's
+    # txf_fe_prod
+    sizes = [N_FE // len(fe13.EDGE_KINDS)] * (len(fe13.EDGE_KINDS) - 1)
+    erng = np.random.default_rng(SEED + 37)  # its own stream: the rows below keep their inputs
+    pairs = [fe13.bound_edge_limbs(erng, n_k, kind)
+             for n_k, kind in zip(sizes + [N_FE - sum(sizes)], fe13.EDGE_KINDS)]
+    ea, eb = (torch.from_numpy(np.concatenate(x)).to(dev) for x in zip(*pairs))
+    kp = fe13.fe13_prod(ea, eb)
+    pp = fe13.fe13_prod_plain(ea, eb)
+    torch.cuda.synchronize()
+    starts = np.cumsum([0] + [len(x[0]) for x in pairs])
+    for kind, lo, hi in zip(fe13.EDGE_KINDS, starts[:-1], starts[1:]):
+        require(bool((kp[lo:hi] == pp[lo:hi]).all()), f"K8 fe13_prod kernel != plain on the {kind} inputs")
+    ms = cuda_ms_window(lambda: fe13.fe13_prod(ea, eb), 200)
+    pms = cuda_ms(lambda: fe13.fe13_prod_plain(ea, eb), 3)
+    bnd, by = bound_ms(card, nbytes(ea, eb, kp), N_FE * (field.mads(13, 2, 1) + fe13.NLIMB + 4))
+    bnd_sq = bound_ms(card, nbytes(ea, eb, kp), N_FE * (field.mads(13, 2, 1, sq_as_mul=True) + fe13.NLIMB + 4))[0]
+    rows.append(dict(name="K8 fe25519_13 raw products on bound-edge inputs (txf_fe_prod of verify13 alone: "
+                          "mul, sq, mul_small by 2; runs inside txf_verify of verify13 on the radix-13 path)",
+                     route="cuda", source="txflow_tpu_torch/csrc/fe25519_13.cuh",
+                     replaces="txflow_tpu/ops/fe13.py:113,140,144", launched_in="txf_verify (verify13)",
+                     launches=launches["verify13_tally"], max_abs_err=int((kp - pp).abs().max()), ms=ms,
+                     plain_ms=pms, bound_ms=bnd, bound_by=by, bound_ms_sq_as_mul=bnd_sq, library_ms=None,
+                     shape=f"{N_FE} x (mul, sq, mul_small) over " + ", ".join(fe13.EDGE_KINDS)))
+    log(f"K8 fe13_prod: bit-exact over {N_FE} bound-edge elements ({', '.join(fe13.EDGE_KINDS)}); "
+        f"{ms:.4f} ms (plain {pms:.1f} ms, bound {bnd:.6f} ms by {by} [{bnd_sq:.6f}])")
 
     args25 = k3["args"]
     epoch13 = ed25519_batch.EpochTables(k3["keys"], fe_radix=13)
@@ -2856,9 +2893,11 @@ def k8_rows(card: dict, k3: dict, dev, launches: dict, ptx: dict) -> tuple[list[
                  and (k2[1] == k2_25[1]).all()), "dsm_encode13 != dsm_encode over radix 25")
     ms = cuda_ms_window(lambda: curve.dsm_encode(s_nib, h_nib, vidx, tables13, fe_radix=13), 10)
     pms = cuda_ms(lambda: curve.dsm_encode_plain(s_nib, h_nib, vidx, tables13, fe_radix=13), 2)
-    bnd, by = bound_ms(card, nbytes(s_nib, h_nib, vidx, tables13, *k2,
-                                    curve.device_base_quarters(dev, 13)[0]),
+    k2_bytes = nbytes(s_nib, h_nib, vidx, tables13, *k2, curve.device_base_quarters(dev, 13)[0])
+    bnd, by = bound_ms(card, k2_bytes,
                        N_DSM * field.mads(13, curve.MULS_PER_DSM_ENCODE, curve.SQS_PER_DSM_ENCODE))
+    bnd_sq = bound_ms(card, k2_bytes, N_DSM * field.mads(13, curve.MULS_PER_DSM_ENCODE, curve.SQS_PER_DSM_ENCODE,
+                                                         sq_as_mul=True))[0]
     rows.append(dict(name="K2 over K8: double-scalar multiply + encode (dsm_encode kernel of verify13 alone, "
                           "four lanes a row by coordinate; the formulas run inside txf_verify of verify13)",
                      route="cuda", **COORD_NOTE,
@@ -2867,10 +2906,10 @@ def k8_rows(card: dict, k3: dict, dev, launches: dict, ptx: dict) -> tuple[list[
                      replaces="txflow_tpu/ops/curve.py:162", launched_in="txf_verify (verify13)",
                      launches=launches["verify13_tally"],
                      max_abs_err=int(max((k2[0] - p2[0]).abs().max(), (k2[1] - p2[1]).abs().max())),
-                     ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by, library_ms=None,
-                     shape=f"{N_DSM} pairs"))
+                     ms=ms, plain_ms=pms, bound_ms=bnd, bound_by=by, bound_ms_sq_as_mul=bnd_sq,
+                     library_ms=None, shape=f"{N_DSM} pairs"))
     log(f"K8 dsm_encode13: bit-exact over {N_DSM} pairs, y and parity equal to radix 25; {ms:.4f} ms "
-        f"(plain {pms:.1f} ms, bound {bnd:.5f} ms by {by})")
+        f"(plain {pms:.1f} ms, bound {bnd:.5f} ms by {by} [{bnd_sq:.5f}])")
 
     # K3 over K8: the K3 batch of MAX_BATCH rows, the plain version over the whole batch
     n, n_ok = k3["n"], k3["n_ok"]
@@ -2885,9 +2924,9 @@ def k8_rows(card: dict, k3: dict, dev, launches: dict, ptx: dict) -> tuple[list[
     require(bool((k == p).all()), "K8 verify13 kernel != plain")
     require(bool((k == mask25).all()), "verify13 mask != the radix-25 kernel's")
     require(k[n].item() and not k[n + 1].item(), "radix 13: non-canonical R check failed")
-    mads13 = ed25519_batch.mads_per_signature(13)
-    bnd13, by13 = bound_ms(card, nbytes(*args13) + nbytes(curve.device_base_quarters(dev, 13))
-                           + MAX_BATCH * 4, n_ok * mads13)
+    k3_bytes = nbytes(*args13) + nbytes(curve.device_base_quarters(dev, 13)) + MAX_BATCH * 4
+    bnd13, by13 = bound_ms(card, k3_bytes, n_ok * ed25519_batch.mads_per_signature(13))
+    bnd13_sq = bound_ms(card, k3_bytes, n_ok * ed25519_batch.mads_per_signature(13, sq_as_mul=True))[0]
     # the A/B: K3 and verify13 in turns (K3, K8, K8, K3)
     ab = []
     for r, args in ((25, args25), (13, args13), (13, args13), (25, args25)):
@@ -2898,8 +2937,9 @@ def k8_rows(card: dict, k3: dict, dev, launches: dict, ptx: dict) -> tuple[list[
                             "txflow_tpu_torch/csrc/fe25519_13.cuh",
                      replaces="txflow_tpu/ops/ed25519_batch.py:384 under txflow_tpu/ops/fe.py:173",
                      launches=launches["verify13_tally"], max_abs_err=int((k.int() - p.int()).abs().max()),
-                     ms=ms, plain_ms=pms, bound_ms=bnd13, bound_by=by13, library_ms=None,
-                     **VERIFY_LAUNCH_NOTE, shape=f"{MAX_BATCH} rows, {n_ok} past the host pre-checks",
+                     ms=ms, plain_ms=pms, bound_ms=bnd13, bound_by=by13, bound_ms_sq_as_mul=bnd13_sq,
+                     library_ms=None, **VERIFY_LAUNCH_NOTE,
+                     shape=f"{MAX_BATCH} rows, {n_ok} past the host pre-checks",
                      time_note="plain: one run over the whole batch"))
     reg = {lib: ptx[lib]["kernels"].get("txf_verify_kernel", {}) for lib in ("verify", "verify13")}
     ab_line = {"rows": MAX_BATCH, "k3_ms": [ab[0], ab[3]], "verify13_ms": [ab[1], ab[2]],
@@ -2907,13 +2947,14 @@ def k8_rows(card: dict, k3: dict, dev, launches: dict, ptx: dict) -> tuple[list[
                "k3_bound_ms": bound_ms(card, 0, n_ok * ed25519_batch.mads_per_signature(25))[0],
                "k3_bound_ms_sq_as_mul": bound_ms(card, 0, n_ok * ed25519_batch.mads_per_signature(
                    25, sq_as_mul=True))[0],
-               "verify13_bound_ms": bnd13,
+               "verify13_bound_ms": bnd13, "verify13_bound_ms_sq_as_mul": bnd13_sq,
                "registers": {lib: reg[lib].get("registers") for lib in reg},
+               "verify13_kernels": ptx["verify13"]["kernels"],
                "stack_bytes": {lib: reg[lib].get("stack_bytes") for lib in reg},
                "spill_store_bytes": {lib: ptx[lib]["spill_store_bytes"] for lib in reg},
                "spill_load_bytes": {lib: ptx[lib]["spill_load_bytes"] for lib in reg}}
     log(f"K8 verify13: bit-exact over {MAX_BATCH} rows (plain over the whole batch), mask equal to "
-        f"the radix-25 kernel; {ms:.3f} ms (plain {pms:.1f} ms, bound {bnd13:.4f} ms by {by13})")
+        f"the radix-25 kernel; {ms:.3f} ms (plain {pms:.1f} ms, bound {bnd13:.4f} ms by {by13} [{bnd13_sq:.4f}])")
     log("A/B K3 (radix 2^25.5) vs verify13 (radix 2^13) at "
         f"{MAX_BATCH} rows, in turns: " + json.dumps(ab_line))
 
@@ -2928,19 +2969,21 @@ def k8_rows(card: dict, k3: dict, dev, launches: dict, ptx: dict) -> tuple[list[
     require(bool((k5 == mask25).all()), "verify_tables13 mask != the radix-25 kernel's")
     ms5 = cuda_ms_window(lambda: ed25519_batch.verify_kernel(*k5_args, fe_radix=13), 10)
     pms5 = cuda_ms(lambda: ed25519_batch.verify_kernel_plain(*(x[sub] for x in k5_args), fe_radix=13), 1)
-    bnd5, by5 = bound_ms(card, nbytes(*k5_args, curve.device_base_quarters(dev, 13)[0]) + MAX_BATCH * 4,
-                         n_ok * ed25519_batch.mads_per_signature(13, four_lanes=False))
+    k5_bytes = nbytes(*k5_args, curve.device_base_quarters(dev, 13)[0]) + MAX_BATCH * 4
+    bnd5, by5 = bound_ms(card, k5_bytes, n_ok * ed25519_batch.mads_per_signature(13, four_lanes=False))
+    bnd5_sq = bound_ms(card, k5_bytes, n_ok * ed25519_batch.mads_per_signature(13, four_lanes=False,
+                                                                                sq_as_mul=True))[0]
     rows.append(dict(name="K5 over K8: verify over per-vote tables (txf_verify_tables of verify13, four "
                           "lanes a row by coordinate)", **COORD_NOTE,
                      route="cuda", source="txflow_tpu_torch/csrc/verify.cu (-DTXF_FE_RADIX=13)",
                      replaces="txflow_tpu/ops/ed25519_batch.py:146 under txflow_tpu/ops/fe.py:173",
                      launches=launches["verify_tables13"],
                      max_abs_err=int((k5[sub].int() - p5.int()).abs().max()), ms=ms5, plain_ms=pms5,
-                     bound_ms=bnd5, bound_by=by5, library_ms=None,
+                     bound_ms=bnd5, bound_by=by5, bound_ms_sq_as_mul=bnd5_sq, library_ms=None,
                      shape=f"{MAX_BATCH} rows, {n_ok} past the host pre-checks",
                      time_note=f"plain: {len(sub)} rows (the sub-batch held bit-exact)"))
     log(f"K8 verify_tables13: bit-exact on {len(sub)} rows, mask equal to radix 25 over {MAX_BATCH}; "
-        f"{ms5:.3f} ms (plain {pms5:.1f} ms on the sub-batch, bound {bnd5:.4f} ms by {by5})")
+        f"{ms5:.3f} ms (plain {pms5:.1f} ms on the sub-batch, bound {bnd5:.4f} ms by {by5} [{bnd5_sq:.4f}])")
     return rows, ab_line
 
 

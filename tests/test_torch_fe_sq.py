@@ -154,7 +154,8 @@ def test_bound_counts_squarings_as_the_formulas_do(monkeypatch):
     assert curve.SQS_PER_QUARTER_DSM_ENCODE == 1214 and curve.SQS_PER_DSM_ENCODE == 1278
     assert ed25519_batch.mads_per_signature(25) == 1889 * fe.MADS_PER_MUL + 1214 * fe.MADS_PER_SQ
     assert ed25519_batch.mads_per_signature(25, sq_as_mul=True) == 3103 * fe.MADS_PER_MUL
-    assert field.mads(13, 10, 4) == field.mads(13, 10, 4, sq_as_mul=True)  # radix 2^13: fe_sq is fe_mul
+    assert field.mads(25, 10, 4) == 6 * fe.MADS_PER_MUL + 4 * fe.MADS_PER_SQ
+    assert field.mads(25, 10, 4, sq_as_mul=True) == 10 * fe.MADS_PER_MUL
 
 
 SHIM = textwrap.dedent("""

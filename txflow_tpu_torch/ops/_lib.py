@@ -89,8 +89,8 @@ LIBS = {
 KERNELS = {"fe_ops": "verify", "fe_prod": "verify", "dsm_encode": "verify", "verify": "verify",
            "verify_tables": "verify", "verify_tally": "verify", "verify_tally64": "verify",
            "verify_partial": "verify", "verify_partial64": "verify",
-           "fe13_ops": "verify13", "dsm_encode13": "verify13", "verify13": "verify13",
-           "verify_tables13": "verify13", "verify13_tally": "verify13",
+           "fe13_ops": "verify13", "fe13_prod": "verify13", "dsm_encode13": "verify13",
+           "verify13": "verify13", "verify_tables13": "verify13", "verify13_tally": "verify13",
            "verify13_tally64": "verify13", "verify13_partial": "verify13",
            "verify13_partial64": "verify13", "tally": "tally", "tally64": "tally",
            "tally_partial": "tally", "tally_partial64": "tally",

@@ -47,14 +47,19 @@ def limbs_to_int(limbs) -> int:
 
 
 P_LIMBS = int_to_limbs(P_INT)
+# the JAX package's bound on a normalized limb (fe_mul's inputs): fe_add
+# and fe_sub return at most 8191 plus one carry pass's wrap of 2 * 608
+NORM = 9408
 OFFSET_P_LIMBS = 128 * P_LIMBS  # dominates any normalized subtrahend limb
 
 # integer multiply-adds of one fe_mul in the CUDA kernel: the 20 x 20
 # products, the x608 fold of the 20 high columns, and the x608 wrap of
 # each of the seven carry passes
 MADS_PER_MUL = NLIMB * NLIMB + NLIMB + 7
-# fe_sq is fe_mul(f, f) in this field's kernel: a squaring costs a product
-MADS_PER_SQ = MADS_PER_MUL
+# and of one fe_sq (csrc/fe25519_13.cuh:fe13_sq_columns): 20 squares, 190
+# cross products (each pair once) and their 19 doublings, then the same
+# fold and passes. The plain fe_sq below is fe_mul(a, a): the same columns
+MADS_PER_SQ = NLIMB + NLIMB * (NLIMB - 1) // 2 + (NLIMB - 1) + NLIMB + 7
 # mul, sq and the 265 of the inversion chain (the kernel's fe_ops work),
 # of them squarings: sq and the chain's 254
 MULS_PER_FE_OPS = 2 + 265
@@ -218,6 +223,79 @@ def fe13_ops_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         fe_freeze(a),
     ]
     return torch.stack(outs, -2)
+
+
+def fe13_prod_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[n, 20] int32 normalized inputs (limbs in [0, ``NORM``]) -> [n, 3,
+    20] int32 raw carried limbs, not frozen: fe_mul(a, b), fe_sq(a) and
+    fe_mul_small(a, 2), the three products the verify kernels chain."""
+    a, b = a.to(torch.int32), b.to(torch.int32)
+    return torch.stack([fe_mul(a, b), fe_sq(a), fe_mul_small(a, 2)], -2)
+
+
+def fe13_prod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K8's products alone, limb for limb: the C entry ``txf_fe_prod`` of
+    library ``verify13`` on a card, its plain version on the CPU. a, b:
+    int32 [n, 20] normalized limbs (``bound_edge_limbs`` gives the edges)."""
+    if a.device.type == "cpu":
+        return fe13_prod_plain(a, b)
+    _lib.check_all((a, torch.int32, (-1, NLIMB), "a"), (b, torch.int32, (a.shape[0], NLIMB), "b"))
+    out = torch.empty((a.shape[0], 3, NLIMB), dtype=torch.int32, device=a.device)
+    _lib.launch(
+        "fe13_prod", "txf_fe_prod", out, a.shape[0], a.data_ptr(), b.data_ptr(),
+        out.data_ptr(), a.shape[0],
+    )
+    return out
+
+
+EDGE_KINDS = ("max", "zero", "alternating", "normalized", "sums")
+
+
+def bound_edge_limbs(rng: np.random.Generator, n: int, kind: str) -> tuple[np.ndarray, np.ndarray]:
+    """n pairs (a, b) of int32 [n, 20] normalized limb vectors (every limb
+    in [0, ``NORM``]) of one kind: ``max`` (a all NORM; b all NORM in the
+    first half, random normalized after), ``zero`` (a all 0, b likewise),
+    ``alternating`` (NORM on even or odd limbs and 0 on the others, either
+    phase; b of the same kind), ``normalized`` (uniform in [0, NORM]) and
+    ``sums`` (fe_add and fe_sub of maximal or random normalized inputs,
+    as the curve formulas feed them to a product)."""
+    def normalized(m):
+        return rng.integers(0, NORM + 1, (m, NLIMB))
+
+    def edge_then_random(value):
+        x = np.concatenate([np.full((n - n // 2, NLIMB), value), normalized(n // 2)])
+        return np.full((n, NLIMB), value), x
+
+    if kind == "max":
+        a, b = edge_then_random(NORM)
+    elif kind == "zero":
+        a, b = edge_then_random(0)
+    elif kind == "alternating":
+        phase = np.arange(NLIMB) % 2
+
+        def alt(m):
+            odd = rng.integers(0, 2, (m, 1))
+            return NORM * (phase[None, :] == odd)
+
+        a, b = alt(n), alt(n)
+    elif kind == "normalized":
+        a, b = normalized(n), normalized(n)
+    elif kind == "sums":
+        def side():
+            x = np.where(rng.integers(0, 2, (n, 1)) == 1, NORM, normalized(n))
+            y = np.where(rng.integers(0, 2, (n, 1)) == 1, NORM, normalized(n))
+            # row 0: all NORM plus a limb 0 that leaves 8191 and carries,
+            # so fe_add's limb 0 is 8191 + 2 * 608 = 9407
+            x[0], y[0] = NORM, NORM
+            y[0, 0] = 2 * MASK + 1 - NORM
+            x, y = torch.from_numpy(x.astype(np.int32)), torch.from_numpy(y.astype(np.int32))
+            h = n // 2
+            return torch.cat([fe_add(x[:h], y[:h]), fe_sub(x[h:], y[h:])]).numpy()
+
+        a, b = side(), side()
+    else:
+        raise ValueError(f"unknown kind {kind!r}")
+    return np.ascontiguousarray(a, np.int32), np.ascontiguousarray(b, np.int32)
 
 
 def fe13_ops(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -15,21 +15,26 @@ at PARENT and of this one in turns (parent, this, this, parent), one
 process each that imports its tree's package and builds its tree's tally
 library; writes chiprun_out/parent_ab_launch.json.
 
-``--kernels-ab PARENT`` times the verify library's kernels through their
-wrappers -- K1 ``fe_ops`` (4096 elements), K3 at rungs 64, 256, 4096 and
-16384, K6 at rungs 8 and 16384 (a 32-key committee's tables), K5 (16384
-rows), K2 (256 pairs) and the fused K7 partial (4096 rows, 4096 slots) --
-of the checkout at PARENT and of this one in turns (parent, this, this,
-parent), one process each that builds its tree's verify library alone, on
-the same seeded inputs (random nibbles over seeded keys; R is the plain
-version's encoding of each row's point, every 8th row's corrupted). Each
-process also launches each kernel's C entry once into zeroed buffers of
-its own; the first launch's points buffers, K2's y and parity, K1's
-output, every mask and the K7 partial must be bitwise equal between the
-trees (the run raises otherwise). Beside the times: each tree's ptxas
-registers and spills, and the SASS of its field (instructions of one
-product, one squaring and one mul_small in probe kernels built from the
-tree's fe25519.cuh, and of every kernel of its verify library, by
+``--kernels-ab PARENT`` times the kernels of both verify libraries through
+their wrappers -- over radix 2^25.5 (``verify``) K1 ``fe_ops`` (4096
+elements), K3 at rungs 64, 256, 4096 and 16384, K6 at rungs 8 and 16384 (a
+32-key committee's tables), K5 (16384 rows), K2 (256 pairs) and the fused
+K7 partial (4096 rows, 4096 slots); over radix 2^13 (``verify13``, K8)
+``fe13_ops`` and the raw products ``txf_fe_prod`` (4096 elements each, the
+products on bound-edge inputs), K3 at rungs 64 and 16384, K6 at rungs 8
+and 16384, K5 and K2 -- of the checkout at PARENT and of this one in turns
+(parent, this, this, parent), one process each that builds its tree's two
+verify libraries alone, on the same seeded inputs (random nibbles over
+seeded keys; R is the plain version's encoding of each row's point, every
+8th row's corrupted; the bound-edge limbs are made once, by this tree, and
+read by every process). Each process also launches each kernel's C entry
+once into zeroed buffers of its own; the first launch's points buffers,
+K2's y and parity, the field kernels' limbs, every mask and the K7 partial
+must be bitwise equal between the trees (the run raises otherwise). Beside
+the times: each tree's ptxas registers and spills, and the SASS of both
+fields (instructions and multiply-adds of one product, one squaring and
+one mul_small in probe kernels built from the tree's fe25519.cuh and
+fe25519_13.cuh, and of every kernel of its verify libraries, by
 ``cuobjdump -sass``); writes chiprun_out/parent_ab_kernels.json.
 
 ``--fingerprints PARENT`` runs the default run of ``chip_smoke.py`` of
@@ -121,21 +126,25 @@ def launch_only() -> None:
 
 K3_RUNGS = (64, 256, 4096, 16384)
 K6_RUNGS = (8, 16384)
+K8_RUNGS = {"k3": (64, 16384), "k6": (8, 16384)}  # K3 and K6 over the radix-2^13 field
 KERNEL_ROWS = 16384
 
 
-def kernel_inputs(cs, dev) -> dict:
+def kernel_inputs(cs, dev, edge13: str) -> dict:
     """The kernel A/B's inputs, made from a seed by numpy and the tree's
     host code (identical in both trees; their digest is compared): 16384
     rows of random nibbles over 16 seeded keys (K3, K5, K2, K7) and over a
-    32-key committee (K6), 1 row in 16 failing its pre-checks; R and its
-    sign the plain version's encoding of each row's point, so the rows
-    verify, except every 8th row's, whose R has a flipped byte."""
+    32-key committee (K6), 1 row in 16 failing its pre-checks, with each
+    key set's tables over both fields; R and its sign the plain version's
+    encoding of each row's point, so the rows verify, except every 8th
+    row's, whose R has a flipped byte. Field elements: N_FE random values
+    as limbs of each field, and the radix-2^13 bound-edge pairs of the
+    ``.npz`` at ``edge13``."""
     import numpy as np
     import torch
 
     from txflow_tpu_torch.crypto import ed25519 as host_ed
-    from txflow_tpu_torch.ops import curve, ed25519_batch, fe
+    from txflow_tpu_torch.ops import curve, ed25519_batch, fe, fe13
 
     rng = np.random.default_rng(cs.SEED + 31)
     n = KERNEL_ROWS
@@ -147,7 +156,7 @@ def kernel_inputs(cs, dev) -> dict:
     h_nib = T(rng.integers(0, 16, (n, 64), dtype=np.uint8))
     pre_ok = np.ones(n, bool)
     pre_ok[::16] = False
-    sets = {}
+    sets, sets13 = {}, {}
     for name, v in (("k3", 16), ("k6", 32)):
         keys = [host_ed.public_key_from_seed(rng.bytes(32)) for _ in range(v)]
         epoch = ed25519_batch.EpochTables(keys, fe_radix=25)
@@ -158,11 +167,18 @@ def kernel_inputs(cs, dev) -> dict:
         r_y[::8, 3] ^= 0x40
         sets[name] = (s_nib, h_nib, vidx, tables, quarters, T(r_y),
                       T(parity.cpu().numpy().astype(np.uint8)), T(pre_ok))
+        epoch13 = ed25519_batch.EpochTables(keys, fe_radix=13)
+        sets13[name] = (*sets[name][:3], epoch13.device_tables(dev), epoch13.device_quarter_tables(dev),
+                        *sets[name][5:])
     vals = [int.from_bytes(rng.bytes(32), "little") & (2**255 - 1) for _ in range(2 * cs.N_FE)]
-    limbs = T(fe.bytes_to_limbs_np(np.stack([np.frombuffer(x.to_bytes(32, "little"), np.uint8)
-                                             for x in vals])))
+    raw = np.stack([np.frombuffer(x.to_bytes(32, "little"), np.uint8) for x in vals])
+    limbs, limbs13 = T(fe.bytes_to_limbs_np(raw)), T(fe13.bytes_to_limbs_np(raw))
+    with np.load(edge13) as z:
+        edge = (T(z["a"]), T(z["b"]))
     q = n // cs.MESH_SHARDS
     return {"k3": sets["k3"], "k6": sets["k6"], "fe": (limbs[:cs.N_FE], limbs[cs.N_FE:]),
+            "k3_13": sets13["k3"], "k6_13": sets13["k6"],
+            "fe13": (limbs13[:cs.N_FE], limbs13[cs.N_FE:]), "fe13_edge": edge,
             "slot": T(rng.integers(-1, q, q).astype(np.int32)),
             "powers": T((10 * (1 + np.arange(16) % 4)).astype(np.int32)), "partial_rows": q}
 
@@ -181,43 +197,80 @@ def _digest(*tensors) -> str:
     return h.hexdigest()
 
 
-def kernel_outputs(inp, dev) -> dict:
-    """sha256 of what each kernel's C entry writes, launched once into
-    zeroed buffers of the caller (the points of the first launch, then the
-    second launch's output): K3 and K6 at each rung, K5, K2 (points, y,
-    parity), K1 and the fused K7 partial (packed head and partial)."""
+def _field_outputs(inp, dev, radix: int) -> dict:
+    """sha256 of what the verify library of one field writes, each C entry
+    launched once into zeroed buffers (the points of the first launch,
+    then the second launch's output): K3 and K6 at each rung, K5, K2
+    (points, y, parity)."""
     import torch
 
-    from txflow_tpu_torch.ops import _lib, curve, fe, tally
+    from txflow_tpu_torch.ops import _lib, curve
 
-    base = curve.device_base_quarters(dev, 25)
+    sfx, tag = ("", "") if radix == 25 else ("13", "_13")
+    nl = 10 if radix == 25 else 20
+    base = curve.device_base_quarters(dev, radix)
     out = {}
-    for name, rungs in (("k3", K3_RUNGS), ("k6", K6_RUNGS)):
-        for rung in rungs:
-            a = _rows(inp[name], rung)
-            points = torch.zeros((rung, 3, fe.NLIMB), dtype=torch.int32, device=dev)
+    rungs = {"k3": K3_RUNGS, "k6": K6_RUNGS} if radix == 25 else K8_RUNGS
+    for name in ("k3", "k6"):
+        for rung in rungs[name]:
+            a = _rows(inp[name + tag], rung)
+            points = torch.zeros((rung, 3, nl), dtype=torch.int32, device=dev)
             mask = torch.zeros((rung,), dtype=torch.int32, device=dev)
-            _lib.launch("verify", "txf_verify", mask, rung, *(t.data_ptr() for t in a[:5]),
+            _lib.launch("verify" + sfx, "txf_verify", mask, rung, *(t.data_ptr() for t in a[:5]),
                         a[3].shape[0], base.data_ptr(), *(t.data_ptr() for t in a[5:]),
                         points.data_ptr(), mask.data_ptr(), rung)
-            out[f"{name}_rung{rung}"] = _digest(points, mask)
-            out[f"{name}_rung{rung}_valid"] = int(mask.sum())
-    a = inp["k3"]
+            out[f"{name}{tag}_rung{rung}"] = _digest(points, mask)
+            out[f"{name}{tag}_rung{rung}_valid"] = int(mask.sum())
+    a = inp["k3" + tag]
     n = a[0].shape[0]
     gathered = a[3][a[2].long()].contiguous()
-    scratch = torch.zeros((n * (3 * fe.NLIMB + 1),), dtype=torch.int32, device=dev)
-    _lib.launch("verify_tables", "txf_verify_tables", scratch, n, a[0].data_ptr(),
+    scratch = torch.zeros((n * (3 * nl + 1),), dtype=torch.int32, device=dev)
+    _lib.launch("verify_tables" + sfx, "txf_verify_tables", scratch, n, a[0].data_ptr(),
                 a[1].data_ptr(), gathered.data_ptr(), base.data_ptr(), *(t.data_ptr() for t in a[5:]),
-                scratch.data_ptr(), scratch[n * 3 * fe.NLIMB:].data_ptr(), n)
-    out["k5"] = _digest(scratch)
+                scratch.data_ptr(), scratch[n * 3 * nl:].data_ptr(), n)
+    out["k5" + tag] = _digest(scratch)
     m = 256
-    scratch = torch.zeros((m * (4 * fe.NLIMB + 1),), dtype=torch.int32, device=dev)
-    _lib.launch("dsm_encode", "txf_dsm_encode", scratch, m, a[0].data_ptr(), a[1].data_ptr(),
+    scratch = torch.zeros((m * (4 * nl + 1),), dtype=torch.int32, device=dev)
+    _lib.launch("dsm_encode" + sfx, "txf_dsm_encode", scratch, m, a[0].data_ptr(), a[1].data_ptr(),
                 a[2].data_ptr(), a[3].data_ptr(), a[3].shape[0], base.data_ptr(),
-                scratch.data_ptr(), scratch[m * 3 * fe.NLIMB:].data_ptr(),
-                scratch[m * 4 * fe.NLIMB:].data_ptr(), m)
-    out["k2_points_y_parity"] = _digest(scratch)
+                scratch.data_ptr(), scratch[m * 3 * nl:].data_ptr(),
+                scratch[m * 4 * nl:].data_ptr(), m)
+    out["k2_points_y_parity" + tag] = _digest(scratch)
+    return out
+
+
+def _fe13_prod(a, b):
+    """verify13's ``txf_fe_prod`` on [n, 20] limbs: ``fe13.fe13_prod``,
+    or, in a tree whose fe13 has no such wrapper, its C entry (which both
+    trees build) under a ``fe13_prod`` key registered here."""
+    import torch
+
+    from txflow_tpu_torch.ops import _lib, fe13
+
+    if hasattr(fe13, "fe13_prod"):
+        return fe13.fe13_prod(a, b)
+    _lib.KERNELS.setdefault("fe13_prod", "verify13")
+    _lib.launches.setdefault("fe13_prod", 0)
+    out = torch.empty((a.shape[0], 3, 20), dtype=torch.int32, device=a.device)
+    _lib.launch("fe13_prod", "txf_fe_prod", out, a.shape[0], a.data_ptr(), b.data_ptr(),
+                out.data_ptr(), a.shape[0])
+    return out
+
+
+def kernel_outputs(inp, dev) -> dict:
+    """sha256 of what each kernel's C entry writes, in both fields (see
+    ``_field_outputs``), with K1's and K8's field kernels (K8's raw
+    products on the bound edges too) and the fused K7 partial (packed head
+    and partial)."""
+    import torch
+
+    from txflow_tpu_torch.ops import fe, fe13, tally
+
+    out = {**_field_outputs(inp, dev, 25), **_field_outputs(inp, dev, 13)}
     out["k1_fe_ops"] = _digest(fe.fe_ops(*inp["fe"]))
+    out["k8_fe13_ops"] = _digest(fe13.fe13_ops(*inp["fe13"]))
+    out["k8_fe13_prod_edges"] = _digest(_fe13_prod(*inp["fe13_edge"]))
+    a = inp["k3"]
     q = inp["partial_rows"]
     packed, part = tally.compact_step_partial(*_rows(a, q)[:3], *_rows(a, q)[5:], inp["slot"],
                                               a[3], a[4], inp["powers"], q)
@@ -229,7 +282,7 @@ def kernel_outputs(inp, dev) -> dict:
 def kernel_times(cs, inp) -> dict:
     """Milliseconds a wrapper call of each kernel: many calls between one
     pair of CUDA events (``cs.cuda_ms_window``), after warmup."""
-    from txflow_tpu_torch.ops import curve, ed25519_batch, fe, tally
+    from txflow_tpu_torch.ops import curve, ed25519_batch, fe, fe13, tally
 
     a = inp["k3"]
     gathered = a[3][a[2].long()].contiguous()
@@ -248,34 +301,53 @@ def kernel_times(cs, inp) -> dict:
     fns["k7_partial_4096"] = (
         lambda: tally.compact_step_partial(*_rows(a, q)[:3], *_rows(a, q)[5:], inp["slot"], a[3],
                                            a[4], inp["powers"], q, partial=acc), 20)
+    a13 = inp["k3_13"]
+    gathered13 = a13[3][a13[2].long()].contiguous()
+    fns["k8_fe13_ops_4096"] = (lambda: fe13.fe13_ops(*inp["fe13"]), 50)
+    fns["k8_fe13_prod_4096"] = (lambda: _fe13_prod(*inp["fe13_edge"]), 200)
+    for name, rungs in K8_RUNGS.items():
+        for rung in rungs:
+            args = _rows(inp[name + "_13"], rung)
+            fns[f"k8_{name}_rung{rung}"] = (
+                lambda args=args: ed25519_batch.verify_kernel_gather(*args, fe_radix=13),
+                100 if rung <= 64 else 10)
+    fns["k8_k5_16384"] = (
+        lambda: ed25519_batch.verify_kernel(a13[0], a13[1], gathered13, *a13[5:], fe_radix=13), 10)
+    fns["k8_k2_256"] = (
+        lambda: curve.dsm_encode(a13[0][:256], a13[1][:256], a13[2][:256], a13[3], fe_radix=13), 10)
     return {k: cs.cuda_ms_window(fn, reps) for k, (fn, reps) in fns.items()}
 
 
-def kernels_only() -> None:
-    """``--kernels-only``, run with a tree's root first on ``sys.path``:
-    build that tree's verify library alone, then print one JSON line of
-    its kernels' times, output digests, input digest and ptxas
-    registers."""
+def kernels_only(edge13: str) -> None:
+    """``--kernels-only EDGE13``, run with a tree's root first on
+    ``sys.path``: build that tree's two verify libraries alone, then print
+    one JSON line of its kernels' times, output digests, input digest and
+    ptxas registers."""
     import torch
 
     from txflow_tpu_torch.ops import _lib
 
-    _lib.LIBS = {"verify": _lib.LIBS["verify"]}  # build_all then builds verify alone
+    # build_all then builds these two alone, in parallel
+    _lib.LIBS = {k: _lib.LIBS[k] for k in ("verify", "verify13")}
     _lib.library("verify")
+    _lib.library("verify13")
     cs = _chip_smoke()
     dev = torch.device("cuda")
-    inp = kernel_inputs(cs, dev)
-    digest_in = _digest(*inp["k3"], *inp["k6"][2:], *inp["fe"], inp["slot"], inp["powers"])
+    inp = kernel_inputs(cs, dev, edge13)
+    digest_in = _digest(*inp["k3"], *inp["k6"][2:], *inp["k3_13"][3:5], *inp["k6_13"][3:5],
+                        *inp["fe"], *inp["fe13"], *inp["fe13_edge"], inp["slot"], inp["powers"])
     outs = kernel_outputs(inp, dev)
+    ptx = cs.ptxas_info()
     print(json.dumps({"tree": str(_lib.PKG.parent), "inputs": digest_in, "outputs": outs,
-                      "ms": kernel_times(cs, inp), "ptxas": cs.ptxas_info()["verify"]}), flush=True)
+                      "ms": kernel_times(cs, inp),
+                      "ptxas": {k: ptx[k] for k in ("verify", "verify13")}}), flush=True)
 
 
-# probe kernels of one field function each, built from a tree's
-# fe25519.cuh: load f and g, t = the function, store t + g; probe_add's
+# probe kernels of one field function each, built from a tree's field
+# header: load f and g, t = the function, store t + g; probe_add's
 # function is a copy, so a probe less probe_add is the function's own
 _PROBE = r"""
-#include "fe25519.cuh"
+#include "%s"
 #define TXF_PROBE(name, body)                                                 \
   extern "C" __global__ void name(const int32_t* a, const int32_t* b,       \
                                   int32_t* o) {                             \
@@ -297,6 +369,8 @@ TXF_PROBE(probe_mul, fe_mul(t, f, g))
 TXF_PROBE(probe_sq, fe_sq(t, f))
 TXF_PROBE(probe_mul_small, fe_mul_small(t, f, 2))
 """
+# field header -> the name of its probes' set
+PROBE_HEADERS = {"fe25519.cuh": "probes", "fe25519_13.cuh": "probes13"}
 
 
 def _sass_text(path: str) -> str:
@@ -326,59 +400,99 @@ def sass_opcodes(path: str) -> dict:
 
 
 def _summary(ops: dict) -> dict:
-    """Instruction counts of one function: total and signed wide
-    multiply-adds (``IMAD.WIDE``: the field's 32x32->64 products;
-    ``IMAD.WIDE.U32`` is address arithmetic and the carry's x19)."""
+    """Instruction counts of one function: total, signed wide multiply-adds
+    (``IMAD.WIDE``: radix 2^25.5's 32x32->64 products; ``IMAD.WIDE.U32``
+    is address arithmetic and the carry's x19) and 32-bit multiply-adds
+    (``IMAD``: radix 2^13's products, the x608 wraps and moves the
+    compiler writes as multiply-adds by one)."""
     return {"total": sum(ops.values()), "imad_wide": ops.get("IMAD.WIDE", 0),
+            "imad": ops.get("IMAD", 0),
             "by_opcode": dict(sorted(ops.items(), key=lambda kv: -kv[1]))}
 
 
 def sass_counts(tree: str) -> dict:
-    """The SASS of a tree's field and kernels: each probe kernel (one
-    fe_mul, fe_sq or fe_mul_small between the same loads, add and stores;
-    ``op`` and ``op_imad_wide`` are its instructions and wide
-    multiply-adds less probe_add's, the function's own), and every kernel
-    and device function of the tree's built verify library."""
+    """The SASS of a tree's fields and kernels: each probe kernel of each
+    field (one fe_mul, fe_sq or fe_mul_small between the same loads, add
+    and stores; ``op``, ``op_imad_wide`` and ``op_imad`` are its
+    instructions and multiply-adds less probe_add's, the function's own),
+    and every kernel and device function of the tree's built verify
+    libraries."""
     import tempfile
 
     from txflow_tpu_torch.ops import _lib
 
     csrc = os.path.join(tree, "txflow_tpu_torch", "csrc")
-    with tempfile.TemporaryDirectory() as d:
-        src, cubin = os.path.join(d, "probe.cu"), os.path.join(d, "probe.cubin")
-        with open(src, "w") as f:
-            f.write(_PROBE)
-        subprocess.run([_lib._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-                        "-std=c++17", "-cubin", "-I", csrc, "-o", cubin, src], check=True,
-                       capture_output=True)
-        probes = {k: _summary(v) for k, v in sass_opcodes(cubin).items() if k.startswith("probe_")}
-        os.makedirs("chiprun_out", exist_ok=True)
-        tag = "this" if os.path.samefile(tree, HERE) else os.path.basename(os.path.normpath(tree))
-        with open(os.path.join("chiprun_out", f"parent_ab_probe_sass_{tag}.txt"), "w") as f:
-            f.write(_sass_text(cubin))
-    base = probes["probe_add"]
-    for p in probes.values():
-        p["op"] = p["total"] - base["total"]
-        p["op_imad_wide"] = p["imad_wide"] - base["imad_wide"]
-    lib = os.path.join(tree, "txflow_tpu_torch", "_build", "libverify.so")
-    kernels = {k: {x: v for x, v in _summary(ops).items() if x != "by_opcode"}
-               for k, ops in sass_opcodes(lib).items()}
-    return {"probes": probes, "library": kernels}
+    out = {}
+    tag = "this" if os.path.samefile(tree, HERE) else os.path.basename(os.path.normpath(tree))
+    os.makedirs("chiprun_out", exist_ok=True)
+    for header, key in PROBE_HEADERS.items():
+        with tempfile.TemporaryDirectory() as d:
+            src, cubin = os.path.join(d, "probe.cu"), os.path.join(d, "probe.cubin")
+            with open(src, "w") as f:
+                f.write(_PROBE % header)
+            subprocess.run([_lib._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                            "-std=c++17", "-cubin", "-I", csrc, "-o", cubin, src], check=True,
+                           capture_output=True)
+            probes = {k: _summary(v) for k, v in sass_opcodes(cubin).items() if k.startswith("probe_")}
+            with open(os.path.join("chiprun_out", f"parent_ab_{key}_sass_{tag}.txt"), "w") as f:
+                f.write(_sass_text(cubin))
+        base = probes["probe_add"]
+        for p in probes.values():
+            for x in ("total", "imad_wide", "imad"):
+                p["op" if x == "total" else "op_" + x] = p[x] - base[x]
+        out[key] = probes
+    out["library"] = {}
+    for lib in ("verify", "verify13"):
+        path = os.path.join(tree, "txflow_tpu_torch", "_build", f"lib{lib}.so")
+        out["library"][lib] = {_short(k): {x: v for x, v in _summary(ops).items() if x != "by_opcode"}
+                               for k, ops in sass_opcodes(path).items()}
+    return out
+
+
+def _short(name: str) -> str:
+    """A kernel's name without its mangling (``txf_verify_encode_kernel<int32>``),
+    as ``chip_smoke.ptxas_info`` names it; any other function's as it is."""
+    import re
+
+    k = re.search(r"(txf_\w+?_kernel)(I[il]E)?", name)
+    return k.group(1) + {"IiE": "<int32>", "IlE": "<int64>"}.get(k.group(2), "") if k else name
+
+
+def _edge13(path: str) -> None:
+    """Write the radix-2^13 bound-edge pairs (4096, every kind of
+    ``fe13.EDGE_KINDS`` alike) that every tree's process reads."""
+    import numpy as np
+
+    from txflow_tpu_torch.ops import fe13
+
+    rng = np.random.default_rng(_chip_smoke().SEED + 37)
+    n = 4096 // len(fe13.EDGE_KINDS)
+    sizes = [n] * (len(fe13.EDGE_KINDS) - 1) + [4096 - n * (len(fe13.EDGE_KINDS) - 1)]
+    pairs = [fe13.bound_edge_limbs(rng, m, k) for m, k in zip(sizes, fe13.EDGE_KINDS)]
+    np.savez(path, a=np.concatenate([p[0] for p in pairs]), b=np.concatenate([p[1] for p in pairs]))
 
 
 def kernels_ab(parent: str) -> dict:
-    """The verify library's kernels of the checkout at PARENT and of this
-    one, in turns (parent, this, this, parent): times, registers and
-    SASS; raises unless every output is bitwise equal between the trees."""
+    """The kernels of both verify libraries of the checkout at PARENT and
+    of this one, in turns (parent, this, this, parent): times, registers
+    and SASS; raises unless every output is bitwise equal between the
+    trees."""
+    import tempfile
+
+    if os.path.samefile(parent, HERE):
+        raise RuntimeError(f"{parent} is this tree: nothing to compare")
     runs = []
-    for tree in (parent, HERE, HERE, parent):
-        code = ("import runpy, sys; sys.path.insert(0, %r); sys.argv = [%r, '--kernels-only']; "
-                "runpy.run_path(%r, run_name='__main__')" % (tree, SCRIPT, SCRIPT))
-        got = _run(tree, code)
-        if got["tree"] != tree:
-            raise RuntimeError(f"the run in {tree} imported the package of {got['tree']}")
-        print(json.dumps({"tree": tree, "ms": got["ms"]}), flush=True)
-        runs.append(got)
+    with tempfile.TemporaryDirectory() as d:
+        edge13 = os.path.join(d, "edge13.npz")
+        _edge13(edge13)
+        for tree in (parent, HERE, HERE, parent):
+            code = ("import runpy, sys; sys.path.insert(0, %r); sys.argv = [%r, '--kernels-only', %r]; "
+                    "runpy.run_path(%r, run_name='__main__')" % (tree, SCRIPT, edge13, SCRIPT))
+            got = _run(tree, code)
+            if got["tree"] != tree:
+                raise RuntimeError(f"the run in {tree} imported the package of {got['tree']}")
+            print(json.dumps({"tree": tree, "ms": got["ms"]}), flush=True)
+            runs.append(got)
     if len({r["inputs"] for r in runs}) != 1:
         raise RuntimeError("the trees made different inputs")
     diff = sorted(k for r in runs[1:] for k in r["outputs"] if r["outputs"][k] != runs[0]["outputs"][k])
@@ -467,8 +581,8 @@ def main(argv: list[str]) -> int:
     if argv == ["--launch-only"]:
         launch_only()
         return 0
-    if argv == ["--kernels-only"]:
-        kernels_only()
+    if len(argv) == 2 and argv[0] == "--kernels-only":
+        kernels_only(argv[1])
         return 0
     modes = {"--launch-ab": (launch_ab, "launch", "launch_ab_ms"),
              "--kernels-ab": (kernels_ab, "kernels", "kernels_ab"),
