@@ -3,6 +3,7 @@
     python3 chip_smoke.py                # one card: build, kernels, slice (serial, threaded, lanes), K8, int64, committee, mesh (serial, threaded)
     python3 chip_smoke.py --cross-card   # two or more cards: the kernels on each
     python3 chip_smoke.py --mesh         # four cards: K5/K7 and the mesh cell over them (serial, threaded)
+    python3 chip_smoke.py --localnet     # one card: the LocalNet cell alone
 
 1. Builds the CUDA sources of txflow_tpu_torch/csrc with nvcc (one process
    per source, in parallel) and prints the card and the build time.
@@ -179,6 +180,31 @@ plain version on the CPU and K3 also against the golden model.
    the small kernels' rows split their time into kernel body (profiler)
    and host enqueue.
 
+11. Gossip and the fast-path node, after phase 9: BASELINE config 2 by
+   bench.py's protocol -- a LocalNet of 4 validators at power 10 (quorum
+   27 of 40), 4 nodes over in-memory pipes in a full mesh (p2p switch,
+   mempool and txvote reactors), one DeviceVoteVerifier on the card with
+   shared_cache=True (buckets 4096 and 16384; each engine's claimed miss
+   set through txf_verify alone, the tally on the host) serving the four
+   engines, which share its process host-prep pool; sign=False,
+   mempool_broadcast=False. 25,000 txs x 4 validators = 100,000 votes,
+   signed before the timed loop, with config 4's check mix: 1/16 of the
+   txs carry validator 0's vote with a flipped S byte (they commit without
+   it), another 1/16 validators 0 and 1 (they commit nowhere). The loop
+   seeds each chunk of 2048 txs into every mempool, then validator v's
+   votes of the chunk into node v's vote pool, and ends when every node
+   committed every tx that should commit. Checks: exactly those txs on
+   every node, no corrupted vote in a certificate and each over 2/3 of the
+   stake, the four kvstore states equal, verify launches above 0 with no
+   fused step, no plain version and no host verify, and the verified rows
+   at most the distinct votes. Prints {"localnet": ...} (committed votes/s
+   summed over nodes, p50/p99 commit latency from a chunk's injection to
+   each node's commit event, wall, the card's busy time over the loop
+   (every kernel and copy in a CUDA-only torch.profiler trace, by name)
+   and its share, GC seconds, CPU seconds by thread, the cache's counters,
+   the launches); the K3 and K6 rows carry its verify launches in
+   launches_by_path.
+
 ``--mesh`` runs only phase 5, its kernel rows and the threaded mesh cell,
 over 4 distinct cards: the engine builds its own mesh from mesh_devices=4
 (make_mesh).
@@ -189,6 +215,7 @@ phase's certificates and app digests) are txflow_tpu_torch/parent_ab.py.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import hashlib
 import json
@@ -275,6 +302,17 @@ LANE_FEE = b"fee=10;"
 LANE_FEE_EVERY = 8
 LANE_RATE = 10_000  # votes/s
 LANE_CHUNK = 100
+# LocalNet phase: BASELINE config 2 -- 4 validators at power 10 on 4
+# hosted nodes, 25,000 txs x 4 = 100,000 votes, seeded and injected in
+# chunks of 2048 txs (bench.py's protocol); the shared verifier's buckets
+# are bench.py's (BENCH_BUCKET 4096 and 4x); the four engines share one
+# process host-prep pool
+NET_CHAIN = "txflow-bench"
+NET_POWER = 10
+NET_TXS = 25_000
+NET_CHUNK = 2048
+NET_BUCKET = 4096
+NET_PREP_WORKERS = 8
 # the standalone tally kernels: no served step launches them (the tally
 # rides in the fused verify's encode launch, fused_kernel)
 STANDALONE_TALLY = ("tally", "tally64", "tally_partial", "tally_partial64")
@@ -824,8 +862,6 @@ def kernel_body_ms(fn, calls: int, warmup: int = 2) -> dict:
     (each kernel's self device time over their number), with "total"
     their sum. An empty trace or a profiler error is reported as such in
     the result: the event windows time every row regardless."""
-    import re
-
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -836,11 +872,19 @@ def kernel_body_ms(fn, calls: int, warmup: int = 2) -> dict:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        events = prof.key_averages()
+        return trace_device_ms(prof, calls)
     except Exception as e:  # noqa: BLE001 -- a measurement, never a check
         return {"error": repr(e)}
+
+
+def trace_device_ms(prof, calls: int = 1) -> dict:
+    """Each kernel's (and copy's) self device milliseconds in a finished
+    torch.profiler trace, by name, over ``calls``, with "total" their sum;
+    {"error": ...} when the trace holds no device time."""
+    import re
+
     out = {}
-    for e in events:
+    for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", None)
         if t is None:
             t = getattr(e, "self_cuda_time_total", 0)
@@ -3131,6 +3175,238 @@ def wide_rows(card: dict, corpus: Corpus, k3: dict, dev, launches: dict, scale: 
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: gossip and the fast-path node -- BASELINE config 2 on one card
+
+
+class NetCorpus:
+    """BASELINE config 2's corpus (``bench.py:690-760``): ``n_txs`` txs and
+    one vote each by ``n_vals`` validators at power ``NET_POWER``, signed
+    before the timed loop, with config 4's check mix (``bench.py:736-741``):
+    for 1/16 of the txs (chosen from the seed) validator 0's signature has
+    a flipped S byte, so the tx commits without that vote; for another
+    1/16 validators 0 and 1 are both corrupted, leaving half the stake
+    honest, so the tx commits on no node."""
+
+    def __init__(self, seed: int, n_vals: int = 4, n_txs: int = 25_000):
+        rng = np.random.default_rng(seed)
+        self.n_vals, self.n_txs = n_vals, n_txs
+        seeds = [rng.bytes(32) for _ in range(n_vals)]
+        self.priv_vals = [MockPV(s) for s in seeds]
+        self.val_set = ValidatorSet([Validator.from_pub_key(pv.get_pub_key(), NET_POWER)
+                                     for pv in self.priv_vals])
+        self.txs = [b"ntx%05d=%d" % (i, i) for i in range(n_txs)]
+        perm = rng.permutation(n_txs)
+        k = n_txs // 16
+        self.one_bad = set(perm[:k].tolist())  # validator 0 corrupted
+        self.two_bad = set(perm[k : 2 * k].tolist())  # validators 0 and 1 corrupted
+        self.votes_by_val: list[list[TxVote]] = [[] for _ in range(n_vals)]
+        items = []
+        for t, tx in enumerate(self.txs):
+            key = hashlib.sha256(tx).digest()
+            for v, pv in enumerate(self.priv_vals):
+                vote = TxVote(0, key.hex().upper(), key, 1_700_000_000_000_000_000 + t,
+                              pv.get_address())
+                items.append((seeds[v], vote.sign_bytes(NET_CHAIN)))
+                self.votes_by_val[v].append(vote)
+        t0 = time.perf_counter()
+        sigs = iter(_sign_all(items))
+        self.sign_s = time.perf_counter() - t0
+        self.bad_sigs: set[bytes] = set()
+        for t in range(n_txs):
+            for v in range(n_vals):
+                sig = next(sigs)
+                if (v == 0 and (t in self.one_bad or t in self.two_bad)) or (
+                        v == 1 and t in self.two_bad):
+                    sig = sig[:45] + bytes([sig[45] ^ 0x01]) + sig[46:]  # an S byte
+                    self.bad_sigs.add(sig)
+                self.votes_by_val[v][t].signature = sig
+        self.expect = [t not in self.two_bad for t in range(n_txs)]
+        self.n_votes = n_vals * n_txs
+
+
+def _thread_cpu_s() -> dict[str, float]:
+    """CPU seconds of every live thread, added up by name with the node's
+    and the peer's ids taken out (``txflow``, ``p2p-recv``, ...)."""
+    out: dict[str, float] = {}
+    for t in threading.enumerate():
+        try:
+            s = time.clock_gettime(time.pthread_getcpuclockid(t.ident))
+        except (OSError, TypeError, AttributeError):
+            continue
+        name = t.name.split("-node")[0]
+        out[name] = out.get(name, 0.0) + s
+    return out
+
+
+def localnet_phase(dev, corpus: "NetCorpus | None" = None, n_txs: int = NET_TXS,
+                   chunk: int = NET_CHUNK, timeout: float = 300.0) -> dict:
+    """BASELINE config 2 through the port's node, by ``bench.py``'s
+    protocol (``bench.py:1-18,690-760,794-831``): a ``LocalNet`` of 4
+    validators at power 10 (quorum 27 of 40) hosting 4 nodes over
+    in-memory pipes in a full mesh; one ``DeviceVoteVerifier`` on the
+    card with ``shared_cache=True`` and buckets (4096, 16384) serves the
+    four engines, which share its process host-prep pool; ``sign=False``,
+    ``mempool_broadcast=False``. Txs are seeded into every mempool a chunk
+    at a time (``check_tx_many``), then validator v's votes of the chunk
+    enter node v's vote pool, and vote gossip fans them out; the timed
+    loop ends when every node has committed every tx that should commit.
+
+    The gate: exactly the expected txs commit on every node; no
+    certificate holds a corrupted vote, each holds more than 2/3 of the
+    stake; the four kvstore states are equal (and hold exactly the
+    expected keys); ``verify`` launches above 0, no fused step, and no
+    plain version ran; the cache's verify rows (each launch's real rows)
+    do not exceed the distinct votes."""
+    from txflow_tpu_torch.node import LocalNet
+    from txflow_tpu_torch.utils.config import test_config
+    from txflow_tpu_torch.utils.events import EventTx
+
+    corpus = corpus or NetCorpus(SEED + 11, n_txs=n_txs)
+    log(f"localnet corpus: {corpus.n_votes} votes signed in {corpus.sign_s:.1f} s; "
+        f"{len(corpus.one_bad)} txs with validator 0 corrupted, {len(corpus.two_bad)} with "
+        f"validators 0 and 1 (never commit)")
+    cfg = test_config()
+    # the pools hold the whole corpus, as the JAX bench sizes them
+    cfg.mempool.size = max(cfg.mempool.size, 4 * corpus.n_txs * (corpus.n_vals + 1))
+    cfg.mempool.cache_size = max(cfg.mempool.cache_size, 2 * cfg.mempool.size)
+    cfg.engine.device = dev.type
+    cfg.engine.min_batch = 3072  # bench.py's device defaults
+    cfg.engine.batch_wait = 0.05
+    cfg.engine.host_prep_workers = NET_PREP_WORKERS
+    cfg.engine.host_prep_backend = "process"
+    verifier = DeviceVoteVerifier(corpus.val_set, device=dev,
+                                  buckets=(NET_BUCKET, 4 * NET_BUCKET), shared_cache=True)
+    net = LocalNet(corpus.n_vals, chain_id=NET_CHAIN, config=cfg, priv_vals=corpus.priv_vals,
+                   sign=False, mempool_broadcast=False, verifier=verifier, device=dev.type)
+    require(net.val_set.hash() == corpus.val_set.hash(), "the net's set is not the corpus'")
+    commit_t: list[dict[str, float]] = [dict() for _ in net.nodes]
+    for i, node in enumerate(net.nodes):
+        node.event_bus.subscribe_callback(
+            EventTx, lambda ev, d=commit_t[i]: d.__setitem__(ev.data.tx_hash, time.perf_counter()))
+    plain_calls = {"n": 0}
+    plains = {m: [(n, getattr(m, n)) for n in names] for m, names in (
+        (ed25519_batch, ("verify_kernel_gather_plain", "verify_kernel_plain")),
+        (tally, ("compact_step_packed_plain", "tally_plain")))}
+
+    def counting(fn):
+        def wrapped(*a, **k):
+            plain_calls["n"] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    for m, fns in plains.items():
+        for n, fn in fns:
+            setattr(m, n, counting(fn))
+    host_calls, restore_host = _count_host_verifies()
+    hashes = [hashlib.sha256(tx).hexdigest().upper() for tx in corpus.txs]
+    want = [tx for tx, ok in zip(corpus.txs, corpus.expect) if ok]
+    inject_t: dict[str, float] = {}
+    try:
+        t0 = time.perf_counter()
+        net.start()
+        start_s = time.perf_counter() - t0
+        log(f"localnet: start() {start_s:.1f} s (4 nodes: warm steps, host-prep pool, mesh)")
+        _lib.reset_launches()  # the counts of the main path's run from here
+        cpu0 = _thread_cpu_s()
+        # the card's busy time over the loop: every kernel and copy in a
+        # CUDA-only profiler trace (events around a launch would also time
+        # the host's gaps, with 60 threads on one interpreter lock)
+        trace = None
+        if dev.type == "cuda":
+            from torch.profiler import ProfilerActivity, profile
+
+            trace = profile(activities=[ProfilerActivity.CUDA])
+        with trace or contextlib.nullcontext(), GcClock() as gcc:
+            t0 = time.perf_counter()
+            for base in range(0, corpus.n_txs, chunk):
+                tx_chunk = corpus.txs[base : base + chunk]
+                for node in net.nodes:
+                    require(not any(node.mempool.check_tx_many(tx_chunk)),
+                            "a mempool rejected a tx")
+                t_chunk = time.perf_counter()
+                for h in hashes[base : base + chunk]:
+                    inject_t[h] = t_chunk
+                for v, node in enumerate(net.nodes):
+                    node.tx_vote_pool.check_tx_many(corpus.votes_by_val[v][base : base + chunk])
+            require(net.wait_all_committed(want, timeout=timeout),
+                    f"not every node committed every tx in {timeout} s")
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize() if dev.type == "cuda" else None
+        cpu1 = _thread_cpu_s()
+        launches = dict(_lib.launches)
+        try:
+            device = trace_device_ms(trace) if trace is not None else {}
+        except Exception as e:  # noqa: BLE001 -- a measurement, never a check
+            device = {"error": repr(e)}
+    finally:
+        for m, fns in plains.items():
+            for n, fn in fns:
+                setattr(m, n, fn)
+        restore_host()
+        net.stop()
+    require(verifier.staging_stats() is None, "the last engine's stop left the verifier open")
+    # -- the gate --
+    power = {v.address: v.voting_power for v in net.val_set}
+    quorum = net.val_set.quorum_power()
+    states = []
+    for i, node in enumerate(net.nodes):
+        flow = node.txflow
+        for h, ok in zip(hashes, corpus.expect):
+            require(flow.is_tx_committed(h) == ok, f"node {i}: tx {h[:12]} committed != {ok}")
+            if not ok:
+                continue
+            cert = flow.load_commit(h)
+            require(cert is not None, f"node {i}: no certificate for {h[:12]}")
+            require(not any(cs.signature in corpus.bad_sigs for cs in cert.commits),
+                    f"node {i}: a corrupted vote in a certificate")
+            stake = sum(power[cs.validator_address] for cs in cert.commits)
+            require(3 * stake > 2 * net.val_set.total_voting_power() and stake >= quorum,
+                    f"node {i}: certificate of {stake} below 2/3")
+        states.append(dict(node.app.state))
+    want_keys = {tx.split(b"=")[0] for tx in want}
+    require(all(s == states[0] for s in states) and set(states[0]) == want_keys,
+            "the kvstore states differ between nodes or from the expected keys")
+    require(launches["verify"] > 0, "no verify launch on the LocalNet path")
+    require(launches[fused_kernel()] == 0, "a fused step ran on the cache path")
+    require(plain_calls["n"] == 0, f"{plain_calls['n']} plain-version calls on the card")
+    require(host_calls["n"] == 0, f"{host_calls['n']} host verifies")
+    require(verifier.cache_verify_rows <= corpus.n_votes,
+            f"{verifier.cache_verify_rows} rows verified for {corpus.n_votes} distinct votes")
+    lat_ms = sorted((d[h] - inject_t[h]) * 1e3 for d in commit_t for h in d if h in inject_t)
+    committed_votes = net.committed_votes_total()
+    threads = {k: cpu1.get(k, 0.0) - cpu0.get(k, 0.0) for k in cpu1}
+    out = {
+        "validators": corpus.n_vals, "nodes": len(net.nodes), "txs": corpus.n_txs,
+        "votes": corpus.n_votes, "chunk": chunk, "buckets": list(verifier.buckets),
+        "miss_buckets": list(verifier.miss_buckets),
+        "committed_txs_per_node": sum(corpus.expect),
+        "committed_votes": committed_votes,
+        "committed_votes_per_s": committed_votes / wall,
+        "p50_commit_ms": _pct(lat_ms, 50), "p99_commit_ms": _pct(lat_ms, 99),
+        "latency_samples": len(lat_ms),
+        "wall_s": wall, "start_s": start_s, "sign_s": corpus.sign_s,
+        "device_ms": device.get("total"),
+        "device_share": device["total"] / (wall * 1e3) if "total" in device else None,
+        "device_ms_by_name": device,
+        "gc_s": gcc.s, "gc_collections": gcc.collections,
+        "cpu_s_by_thread": {k: round(v, 3) for k, v in sorted(threads.items()) if v > 0.01},
+        "cache": {"hits": verifier.cache.hits, "misses": verifier.cache.misses,
+                  "deferrals": verifier.cache.deferrals,
+                  "verify_rows": verifier.cache_verify_rows,
+                  "verify_calls": verifier.cache_verify_calls},
+        "launches": {k: v for k, v in launches.items() if v},
+        "verify_launches": launches["verify"],
+    }
+    log(f"localnet: {committed_votes} certificate votes on 4 nodes in {wall:.2f} s = "
+        f"{out['committed_votes_per_s']:.0f} votes/s; commit p50 {out['p50_commit_ms']:.1f} ms, "
+        f"p99 {out['p99_commit_ms']:.1f} ms; verify {launches['verify']} launches; "
+        f"the card busy {out['device_ms']} ms = {out['device_share']} of the wall; "
+        f"gc {gcc.s:.2f} s; cache hits {verifier.cache.hits}, misses {verifier.cache.misses}, "
+        f"deferrals {verifier.cache.deferrals}")
+    return out
+
+
 def cross_card_phase() -> None:
     """K1, K2 and K3 on every visible card, the last card first, against
     their plain versions on the CPU and, for K3, the golden model."""
@@ -3233,6 +3509,14 @@ def main() -> int:
         log(json.dumps({"kernels": rows}))
         print(json.dumps({"ok": True, "device": device}))
         return 0
+    if sys.argv[1:] == ["--localnet"]:
+        ln = localnet_phase(torch.device("cuda"))
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "chip_smoke_localnet.json"), "w") as f:
+            json.dump({"card": card, "localnet": ln}, f, indent=1)
+        log(json.dumps({"localnet": ln}))
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
     require(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     for name in _lib.LIBS:
         txt = (_lib.BUILD / f"lib{name}.build.txt").read_text()
@@ -3255,9 +3539,13 @@ def main() -> int:
                                 pipeline_commits=False)
     sl_again = serial_again(corpus, dev, sl_res, "serial slice again")
     lp = lanes_phase(dev)
+    ln = localnet_phase(dev)
     by_name = {"K1": "verify_tally", "K2": "verify_tally", "K3": "verify_tally", "K4": "tally"}
     for r in rows:
         r["launches"] = sl["launches"][by_name[r["name"][:2]]]
+        if r["name"][:2] == "K3":
+            # the LocalNet path launches K3 as txf_verify alone (the cache path)
+            r["launches_by_path"] = {"slice": r["launches"], "localnet": ln["verify_launches"]}
     rows += k3_rung_rows(card, k3, dev, lp["k3_launches_by_rung"])
     # the radix-2^13 field (K8): the slice, a sharded step and K5 over the
     # round-robin mesh, all between one reset and one read of the counts
@@ -3283,6 +3571,9 @@ def main() -> int:
     cm = committee_phase(com, dev)
     for r in k6:
         r["launches"] = cm["k6_launches"]  # K6 launches of the committee path, all rungs
+        # txf_verify alone also serves the LocalNet's cache path (all rungs)
+        r["launches_by_path"] = {"committee": cm["k6_launches"],
+                                 "localnet": ln["verify_launches"]}
     # the device's busy share of the committee steps: each step's K6 launch
     # at its kernel-row time (many launches in one window), over step time
     row_ms = {r["rung"]: r["ms"] for r in k6}
@@ -3327,7 +3618,8 @@ def main() -> int:
                    "threaded_slice": ths, "threaded_slice_commits_inline": ths_inline,
                    "serial_slice_again": sl_again, "lanes": lp,
                    "radix13_slice": s13, "int64_slice": wide,
-                   "ab_k3_verify13": ab, "committee": cm, "mesh": mp, "threaded_mesh": thm},
+                   "ab_k3_verify13": ab, "committee": cm, "mesh": mp, "threaded_mesh": thm,
+                   "localnet": ln},
                   f, indent=1)
     for name, run in (("threaded_slice", ths), ("threaded_slice_commits_inline", ths_inline),
                       ("threaded_mesh", thm)):
@@ -3344,6 +3636,7 @@ def main() -> int:
         "step_s", "vote_heights_per_response", "k6_one_launch_window_ms_per_group",
         "k6_main_path_checked")}}))
     log(json.dumps(_mesh_json(mp)))
+    log(json.dumps({"localnet": ln}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

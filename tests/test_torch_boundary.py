@@ -34,8 +34,16 @@ import chip_smoke  # noqa: F401  (its work runs only under __main__)
 
 bad = [k for k, v in sys.modules.items() if v is not None and (k == "jax" or k.startswith(("jax.", "jaxlib", "txflow_tpu.")) or k == "txflow_tpu")]
 assert not bad, bad
+print(" ".join(names))
 print(len(names))
 """
+
+
+GOSSIP_MODULES = (
+    "p2p.base", "p2p.transport", "p2p.switch", "p2p.secret", "p2p.pex", "crypto.x25519",
+    "node.id", "node.node", "node.localnet", "reactors.mempool_reactor",
+    "reactors.txvote_reactor", "privval.file", "privval.signer",
+)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -46,7 +54,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 25  # every module imported
+    lines = proc.stdout.strip().splitlines()
+    assert int(lines[-1]) >= 75  # every module imported
+    # the gossip and node slice: each of its modules is among them
+    names = set(lines[-2].split())
+    for mod in GOSSIP_MODULES:
+        assert "txflow_tpu_torch." + mod in names, mod
 
 
 def test_device_verifier_without_cuda_raises(monkeypatch):

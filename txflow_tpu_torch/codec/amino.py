@@ -22,7 +22,8 @@ on bit-exact sign bytes, so this module reproduces the relevant wire rules:
 ``canonical_sign_bytes`` (CanonicalTxVote) lives here rather than in
 ``types.tx_vote`` so that the host-prep worker processes (``prep.py``)
 encode sign bytes with this module alone, never importing the crypto
-package that ``types`` pulls in.
+package that ``types`` pulls in. ``AminoReader`` is the cursor the gossip
+reactors decode frames with (``txflow_tpu/codec/amino.py:96-171``).
 """
 
 from __future__ import annotations
@@ -67,6 +68,10 @@ def length_prefixed(payload: bytes) -> bytes:
     return uvarint(len(payload)) + payload
 
 
+def fixed64(n: int) -> bytes:
+    return (n & _U64_MASK).to_bytes(8, "little")
+
+
 def encode_time_body(unix_ns: int) -> bytes:
     """Body of an amino-embedded time.Time given integer unix nanoseconds.
 
@@ -92,6 +97,82 @@ def encode_time_body(unix_ns: int) -> bytes:
             n >>= 7
         out.append(n)
     return bytes(out)
+
+
+class AminoReader:
+    """Cursor over amino binary bytes for decoding."""
+
+    def __init__(self, data: bytes, pos: int = 0, end: int | None = None):
+        self.data = data
+        self.pos = pos
+        self.end = len(data) if end is None else end
+
+    def eof(self) -> bool:
+        return self.pos >= self.end
+
+    def read_uvarint(self) -> int:
+        # Matches Go binary.Uvarint overflow rules: at most 10 bytes, and the
+        # 10th byte may only be 0x01 (values must fit in 64 bits).
+        n = 0
+        shift = 0
+        while True:
+            if self.pos >= self.end:
+                raise ValueError("truncated uvarint")
+            b = self.data[self.pos]
+            self.pos += 1
+            if shift == 63 and b > 1:
+                raise ValueError("uvarint overflows 64 bits")
+            n |= (b & 0x7F) << shift
+            if not b & 0x80:
+                return n
+            shift += 7
+            if shift > 63:
+                raise ValueError("uvarint overflows 64 bits")
+
+    def read_varint(self) -> int:
+        n = self.read_uvarint() & _U64_MASK
+        if n >= 1 << 63:
+            n -= 1 << 64
+        return n
+
+    def read_field_key(self) -> tuple[int, int]:
+        k = self.read_uvarint()
+        return k >> 3, k & 0x07
+
+    def read_fixed64(self) -> int:
+        if self.pos + 8 > self.end:
+            raise ValueError("truncated fixed64")
+        n = int.from_bytes(self.data[self.pos : self.pos + 8], "little")
+        self.pos += 8
+        if n >= 1 << 63:
+            n -= 1 << 64
+        return n
+
+    def read_bytes(self) -> bytes:
+        ln = self.read_uvarint()
+        if self.pos + ln > self.end:
+            raise ValueError("truncated byte field")
+        out = self.data[self.pos : self.pos + ln]
+        self.pos += ln
+        return out
+
+    def sub_reader(self) -> "AminoReader":
+        ln = self.read_uvarint()
+        if self.pos + ln > self.end:
+            raise ValueError("truncated embedded struct")
+        r = AminoReader(self.data, self.pos, self.pos + ln)
+        self.pos += ln
+        return r
+
+    def skip_field(self, typ3: int) -> None:
+        if typ3 == TYP3_VARINT:
+            self.read_uvarint()
+        elif typ3 == TYP3_8BYTE:
+            self.read_fixed64()
+        elif typ3 == TYP3_BYTELEN:
+            self.read_bytes()
+        else:
+            raise ValueError(f"unknown typ3 {typ3}")
 
 
 def read_uvarint(data: bytes, pos: int = 0) -> tuple[int, int]:

@@ -216,6 +216,13 @@ class ProcHostPrepPool:
         self._closed = False
         self._broken: str | None = None
         self._mtx = threading.Lock()  # stats, call sequence, live segments
+        # several callers at once (co-located engines on one verifier):
+        # one of them reads the ack queue at a time and files every ack by
+        # its call, the others wait on the condition for theirs
+        self._ack_cond = threading.Condition()
+        self._acks: dict[tuple, tuple] = {}
+        self._live_calls: set[int] = set()
+        self._ack_reader = False
         self._call_seq = 0
         self._live_segs: dict[str, object] = {}
         self.shm_calls = 0
@@ -341,6 +348,8 @@ class ProcHostPrepPool:
             self._live_segs[seg_out.name] = seg_out
             self._call_seq += 1
             call = self._call_seq
+        with self._ack_cond:
+            self._live_calls.add(call)
         in_views = out_views = None
         wait_s = 0.0
         bounds = self.shard_bounds(n)
@@ -362,6 +371,10 @@ class ProcHostPrepPool:
             out = {k: np.array(v) for k, v in out_views.items()}
         finally:
             in_views = out_views = None
+            with self._ack_cond:
+                self._live_calls.discard(call)
+                for sid in [s for s in self._acks if s[0] == call]:
+                    del self._acks[sid]
             with self._mtx:
                 self._live_segs.pop(seg_in.name, None)
                 self._live_segs.pop(seg_out.name, None)
@@ -377,23 +390,43 @@ class ProcHostPrepPool:
     def _await(self, pending: set, deadline: float) -> None:
         """Wait for every shard of ``pending`` to ack; raise on a failed
         shard, a dead worker or the deadline (the last two break the
-        pool). Acks of an earlier, failed call are ignored."""
-        while pending:
-            try:
-                ack = self._done_q.get(timeout=0.05)
-            except _queue.Empty:
+        pool). With several callers, one reads the ack queue at a time
+        and files each ack under its call; acks of a call no longer live
+        (an earlier, failed one) are dropped."""
+        cond = self._ack_cond
+        while True:
+            with cond:
+                for sid in [s for s in pending if s in self._acks]:
+                    pending.discard(sid)
+                    _sid, err, _busy = self._acks.pop(sid)
+                    if err is not None:
+                        raise HostPoolWorkerError(f"host-prep shard {sid} failed: {err}")
+                if not pending:
+                    return
+                reader = not self._ack_reader
+                if reader:
+                    self._ack_reader = True
+                else:
+                    cond.wait(0.05)
+            ack = None
+            if reader:
+                try:
+                    ack = self._done_q.get(timeout=0.05)
+                except _queue.Empty:
+                    pass
+                finally:
+                    with cond:
+                        self._ack_reader = False
+                        if ack is not None and ack[0][0] in self._live_calls:
+                            self._acks[ack[0]] = ack
+                        cond.notify_all()
+            if ack is None:
                 self._check_workers()
                 if self._broken is not None:
                     raise HostPoolWorkerError(self._broken) from None
                 if time.perf_counter() > deadline:
                     self._broken = f"host-prep shards timed out: {len(pending)} pending"
                     raise HostPoolWorkerError(self._broken) from None
-                continue
-            sid, err, _busy = ack
-            if sid in pending:
-                pending.discard(sid)
-                if err is not None:
-                    raise HostPoolWorkerError(f"host-prep shard {sid} failed: {err}")
 
     def _check_workers(self) -> None:
         """Mark the pool broken once any worker has exited."""

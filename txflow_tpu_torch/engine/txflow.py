@@ -51,7 +51,8 @@ included, is kept and raised by ``stop()``; nothing falls back.
 
 At a block boundary ``update_state`` moves the engine to a new height and,
 on a rotated set (a new epoch's committee), restages the verifier's tables
-and re-evaluates every in-flight vote set; ``apply_synced_commit`` is the
+(a verifier that other engines were built over is left as it is: the
+engine moves to a private successor) and re-evaluates every in-flight vote set; ``apply_synced_commit`` is the
 seam through which the catch-up client (``sync/``) applies a fetched,
 re-verified certificate.
 
@@ -265,6 +266,10 @@ class TxFlow:
                 )
         else:
             self.verifier = ScalarVoteVerifier(val_set)
+        if isinstance(self.verifier, DeviceVoteVerifier):
+            # a LocalNet builds its engines over one: update_state restages
+            # it only while this engine is the only one
+            self.verifier.bind()
         self._addr_to_idx = {v.address: i for i, v in enumerate(val_set)}
         self._drain_cap = min(
             self.config.max_batch,
@@ -329,6 +334,9 @@ class TxFlow:
         # verifier
         self._host_pool = None
         self._own_host_pool = False
+        # the device verifiers start() and update_state attached to, each
+        # detached once by stop() (the last engine out closes a verifier)
+        self._attached: list[DeviceVoteVerifier] = []
         self.warm_s: float | None = None  # start()'s build + warm steps
         self.warm_rungs: list[int] = []  # the rows of each warm step
         # pipeline accounting (loop thread; pipeline_stats reads it):
@@ -349,6 +357,8 @@ class TxFlow:
         self._pipe_in_flight = 0
         # the last step's (decided, requeued, dropped, batch)
         self.last_step_stats: dict | None = None
+        # the votes of the decided commits' certificates (under _mtx)
+        self.committed_votes = 0
 
     # ---- lifecycle: the threaded engine (reference OnStart :80-87) ----
 
@@ -364,6 +374,9 @@ class TxFlow:
             self._running = True
             self._error = None
             self._commit_q = _queue.SimpleQueue()
+            if isinstance(self.verifier, DeviceVoteVerifier):
+                self.verifier.attach()  # stop() detaches: the last one closes it
+                self._attached.append(self.verifier)
         try:
             self._build_lanes()
             self._warm()
@@ -378,6 +391,8 @@ class TxFlow:
         except BaseException:
             with self._mtx:
                 self._running = False
+            self._host_pool = None
+            self._detach()
             raise
         self.tx_vote_pool.enable_txs_available()
         if self.config.pipeline_commits:
@@ -436,8 +451,11 @@ class TxFlow:
         if v.device.type == "cuda":
             _lib.build_all()
         rungs = [self._drain_cap]
-        if self._coalescer is not None or self._prio_lane is not None:
-            rungs += sorted((b for b in set(v.buckets) if b < self._drain_cap), reverse=True)
+        if (self._coalescer is not None or self._prio_lane is not None
+                or v.cache is not None):
+            # the cache path launches at every miss rung up to the drain's
+            rungs += sorted((b for b in set(v.warm_ladder) if b < self._drain_cap),
+                            reverse=True)
         for rows in rungs:
             v.warm(rows, self.config.max_slots)
         self.warm_rungs = rungs
@@ -463,8 +481,9 @@ class TxFlow:
 
     def stop(self) -> None:
         """Stop the loop (it collects and routes every ticket in flight),
-        drain the commit queue, close the host-prep pool and the readback
-        ring, and raise the first error a thread met."""
+        drain the commit queue, detach from the device verifier (the last
+        engine to detach closes its host-prep pool and readback ring), and
+        raise the first error a thread met."""
         with self._mtx:
             self._running = False
         if self._thread is not None:
@@ -478,10 +497,17 @@ class TxFlow:
             self._host_pool.close()
         self._host_pool = None
         self._own_host_pool = False
-        if isinstance(self.verifier, DeviceVoteVerifier):
-            self.verifier.close()
+        self._detach()
         if self._error is not None:
             raise self._error
+
+    def _detach(self) -> None:
+        """Detach from every device verifier this engine attached to; an
+        engine that never attached leaves the counts alone."""
+        with self._mtx:
+            attached, self._attached = self._attached, []
+        for v in attached:
+            v.detach()
 
     def _run(self) -> None:
         if self.config.pipeline_depth >= 2:
@@ -743,23 +769,23 @@ class TxFlow:
         if lane == "prio":
             raw, self._prio_drain_cursor = pool.priority_entries_from(
                 self._prio_drain_cursor, limit=max(target - len(self._retry_prio), 0))
-            batch = self._retry_prio + [(k, v) for k, v, _h in raw]
+            batch = self._retry_prio + [(k, v) for k, v, _h, _s in raw]
             self._retry_prio = []
             return batch
         if lane == "bulk":
             raw, self._drain_cursor = pool.bulk_entries_from(
                 self._drain_cursor, limit=max(target - len(self._retry), 0))
-            batch = self._retry + [(k, v) for k, v, _h in raw]
+            batch = self._retry + [(k, v) for k, v, _h, _s in raw]
             self._retry = []
             return batch
         praw, self._prio_drain_cursor = pool.priority_entries_from(
             self._prio_drain_cursor, limit=max(target - len(self._retry), 0))
         drained = self._prio_drained
-        drained.update(k for k, _v, _h in praw)
+        drained.update(k for k, _v, _h, _s in praw)
         raw, self._drain_cursor = pool.entries_from(
             self._drain_cursor, limit=max(target - len(self._retry) - len(praw), 0))
         fresh = []
-        for k, v, _h in raw:
+        for k, v, _h, _s in raw:
             if k in drained:
                 drained.discard(k)  # the main log reached it: done
                 continue
@@ -768,7 +794,7 @@ class TxFlow:
             # keys removed before the main cursor reached them would pile
             # up: keep only those the pool still holds
             self._prio_drained = {k for k in drained if pool.has(k)}
-        batch = self._retry + [(k, v) for k, v, _h in praw] + fresh
+        batch = self._retry + [(k, v) for k, v, _h, _s in praw] + fresh
         self._retry = []
         return batch
 
@@ -1091,6 +1117,7 @@ class TxFlow:
         quorum_votes = vs.get_votes()
         self.vote_sets.pop(vs.tx_hash, None)
         self._committed.push(_hash_key(vs.tx_hash))
+        self.committed_votes += len(quorum_votes)
         tx = self.mempool.get_tx(vs.tx_key)
         if tx is None:
             self._unapplied[vs.tx_hash] = vs.tx_key
@@ -1101,6 +1128,7 @@ class TxFlow:
         quorum_votes = vs.get_votes()
         self.vote_sets.pop(vs.tx_hash, None)
         self._committed.push(_hash_key(vs.tx_hash))
+        self.committed_votes += len(quorum_votes)
         self._commit_effects(vs, quorum_votes, purge_batch)
         if purge_batch is None:
             self.tx_vote_pool.update(self.height, quorum_votes)
@@ -1114,10 +1142,12 @@ class TxFlow:
         self.vote_sets.pop(vs.tx_hash, None)
         self._committed.push(_hash_key(vs.tx_hash))
         self._decided_count += 1
+        votes = vs.votes_snapshot()
+        self.committed_votes += len(votes)
         tx = self.mempool.get_tx(vs.tx_key)
         if tx is None:
             self._unapplied[vs.tx_hash] = vs.tx_key
-        self._commit_q.put((vs, vs.votes_snapshot(), tx))
+        self._commit_q.put((vs, votes, tx))
 
     def _committer_run(self) -> None:
         """The committer thread (``txflow_tpu/engine/txflow.py:1815``):
@@ -1331,9 +1361,13 @@ class TxFlow:
 
         1. the verifier restages in place (new tables on the card, same
            shapes, its field kept, the tally's width chosen for the new
-           set's total power); a device verifier past its capacity is
-           rebuilt on the same device or mesh, over the same field,
-           instead. Only a total power of 2^62 or more raises.
+           set's total power); a device verifier past its capacity, or
+           one that other engines were built over (they serve the old
+           set), is replaced by a private successor on the same device or
+           mesh, over the same field, sharing the verdict cache (its key
+           binds the public key). The old one stays attached until stop(),
+           which collects every ticket in flight on it first. Only a total
+           power of 2^62 or more raises.
         2. every in-flight TxVoteSet is re-evaluated against the new set
            (TxVoteSet.revalidate): votes of removed validators dropped,
            sums re-weighted, latched certificates untouched, and a set
@@ -1346,8 +1380,9 @@ class TxFlow:
                 self.height = height
                 return
             base = self.verifier
-            restaged = base.restage(val_set)
-            # only a device verifier past its capacity declines; its
+            shared = isinstance(base, DeviceVoteVerifier) and base.shared
+            restaged = not shared and base.restage(val_set)
+            # a shared device verifier, or one past its capacity: the
             # successor (on the same device or mesh) is built before any
             # engine state swaps (the height included), so a failure
             # leaves the old epoch's height, map, set and verifier together
@@ -1357,14 +1392,20 @@ class TxFlow:
                 if base.mesh is not None:
                     verifier = DeviceVoteVerifier(val_set, mesh=base.mesh, fe_radix=base.fe_radix,
                                                   staging_ring=base.staging_depth,
-                                                  buckets=base.buckets)
+                                                  buckets=base.buckets)  # a mesh has no cache
                 else:
                     verifier = DeviceVoteVerifier(val_set, device=base.device,
                                                   fe_radix=base.fe_radix,
                                                   staging_ring=base.staging_depth,
-                                                  buckets=base.buckets)
-                # the host-prep pool serves the successor
-                verifier._host_pool, base._host_pool = base._host_pool, None
+                                                  buckets=base.buckets,
+                                                  shared_cache=base.cache)
+                if not shared:  # the host-prep pool serves the successor
+                    verifier._host_pool, base._host_pool = base._host_pool, None
+                if self._attached:  # a running engine: base stays attached
+                    verifier.attach()
+                    self._attached.append(verifier)
+                base.bind(-1)
+                verifier.bind()
             self.height = height
             self.val_set = val_set
             self._addr_to_idx = {v.address: i for i, v in enumerate(val_set)}

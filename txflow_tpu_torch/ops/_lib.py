@@ -102,6 +102,7 @@ _loaded: dict[str, ctypes.CDLL] = {}
 # (kernel, C entry point, card) -> its launcher
 _launchers: dict[tuple[str, str, int], object] = {}
 _mtx = threading.Lock()
+_count_mtx = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -206,7 +207,8 @@ def launch(kernel: str, fn: str, t, n: int, *args) -> None:
     rc = call(args)
     if rc != 0:
         raise RuntimeError(f"{fn} failed: CUDA error {rc}")
-    launches[kernel] += 1
+    with _count_mtx:  # engines of co-located nodes launch from their own threads
+        launches[kernel] += 1
 
 
 def check_all(*specs) -> None:

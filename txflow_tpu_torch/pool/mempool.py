@@ -9,7 +9,12 @@ Forked-mempool behaviors kept for the fast path:
   fast-committed txs in the commitpool;
 - admission lanes (``txflow_tpu/pool/mempool.py:28-33``): the ``lane_of``
   classifier hook, per-lane counts, and reaps that serve the priority
-  lane first.
+  lane first;
+- gossip (``txflow_tpu/pool/mempool.py:65,365-372,428-453``): the app's
+  fast-path verdict per entry (``fast_path_of``), ``has_sender``, and the
+  walks the reactors read, ``entries_from`` and ``priority_entries_from``
+  (the priority lane's own ingest log), over ``(key, tx, height,
+  fast_path, lane)``. The JAX mempool's WAL is left out.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from dataclasses import dataclass, field
 from ..crypto.hash import sha256
 from ..utils.cache import LRUCache
 from ..utils.config import MempoolConfig
-from .base import IngestLogPool
+from .base import COMPACT_THRESHOLD, IngestLogPool
 
 # mempool lanes: priority txs keep committing under overload while bulk
 # traffic sheds at the edges. The constants live here so that admission
@@ -66,6 +71,7 @@ class _MempoolTx:
     gas_wanted: int
     tx: bytes
     senders: set[int] = field(default_factory=set)
+    fast_path: bool = True  # app CheckTx verdict (ResponseCheckTx.fast_path)
     lane: int = LANE_BULK  # admission lane (classifier verdict at insert)
 
 
@@ -81,6 +87,8 @@ class Mempool(IngestLogPool):
         # admission lanes: lane_of is the classifier hook (tx -> lane; None
         # = everything bulk)
         self.lane_of = None
+        self._prio_log: list[bytes] = []  # the priority lane's ingest log
+        self._prio_log_base = 0  # absolute position of _prio_log[0]
         self._lane_counts = [0, 0]  # live entries per lane (PRIORITY, BULK)
 
     def size(self) -> int:
@@ -105,13 +113,16 @@ class Mempool(IngestLogPool):
         tx_info = tx_info or TxInfo()
         out: list[Exception | None] = [None] * len(txs)
         for base in range(0, len(txs), 64):
+            accepted = False
             with self._mtx:
                 for i, tx in enumerate(txs[base : base + 64], base):
                     try:
                         self._check_tx_locked(tx, tx_info, None, notify=False)
+                        accepted = True
                     except Exception as e:
                         out[i] = e
-                self._cond.notify_all()
+                if accepted:  # an all-dup group wakes no walker
+                    self._cond.notify_all()
         return out
 
     def _check_tx_locked(
@@ -142,6 +153,7 @@ class Mempool(IngestLogPool):
                 self.cache.remove(key)
                 raise ValueError(f"rejected by app CheckTx (code {res.code}): {res.log}")
         gas = res.gas_wanted if res is not None else 0
+        fast_path = getattr(res, "fast_path", True) if res is not None else True
         lane = LANE_BULK
         if self.lane_of is not None:
             try:
@@ -150,8 +162,10 @@ class Mempool(IngestLogPool):
                 lane = LANE_BULK  # a hostile tx must not error the insert
             if lane != LANE_PRIORITY:
                 lane = LANE_BULK
-        self._txs[key] = _MempoolTx(self.height, gas, tx, {tx_info.sender_id}, lane)
+        self._txs[key] = _MempoolTx(self.height, gas, tx, {tx_info.sender_id}, fast_path, lane)
         self._lane_counts[lane] += 1
+        if lane == LANE_PRIORITY:
+            self._prio_log.append(key)
         self._log_append(key, notify)
         self._txs_bytes += len(tx)
 
@@ -162,6 +176,52 @@ class Mempool(IngestLogPool):
         a key can only ever map to one byte string."""
         entry = self._txs.get(tx_key)
         return entry.tx if entry is not None else None
+
+    def fast_path_of(self, tx_key: bytes) -> bool | None:
+        """The app's CheckTx fast-path verdict for a pooled tx (None = not
+        in the pool). Lock-free like get_tx: immutable per entry."""
+        entry = self._txs.get(tx_key)
+        return entry.fast_path if entry is not None else None
+
+    def has_sender(self, tx_key: bytes, sender_id: int) -> bool:
+        with self._mtx:
+            entry = self._txs.get(tx_key)
+            return entry is not None and sender_id in entry.senders
+
+    # -- walks (the reactors' sign and broadcast routines) --
+
+    def entries_from(self, cursor: int, limit: int = 256):
+        """Stable-cursor walk of live txs: (tx_key, tx, height, fast_path,
+        lane) tuples; see IngestLogPool._entries_from for the cursor
+        contract."""
+        raw, pos = self._entries_from(cursor, limit)
+        return [(k, e.tx, e.height, e.fast_path, e.lane) for k, e in raw], pos
+
+    def priority_entries_from(self, cursor: int, limit: int = 256):
+        """entries_from over the priority lane only, walking its own
+        ingest log: O(priority backlog), however deep the bulk backlog."""
+        out = []
+        with self._mtx:
+            pos = max(cursor, self._prio_log_base)
+            while pos - self._prio_log_base < len(self._prio_log) and len(out) < limit:
+                key = self._prio_log[pos - self._prio_log_base]
+                e = self._txs.get(key)
+                if e is not None and e.lane == LANE_PRIORITY:
+                    out.append((key, e.tx, e.height, e.fast_path, e.lane))
+                pos += 1
+        return out, pos
+
+    def _prio_compact(self) -> None:
+        """_log_compact's twin for the priority log (call under _mtx)."""
+        log = self._prio_log
+        if len(log) - self._lane_counts[LANE_PRIORITY] < COMPACT_THRESHOLD:
+            return
+        n = 0
+        while n < len(log) and log[n] not in self._txs:
+            n += 1
+        if n >= COMPACT_THRESHOLD:
+            del log[:n]
+            self._prio_log_base += n
 
     def lane_of_key(self, tx_key: bytes) -> int:
         """Admission lane of a pooled tx (LANE_BULK when unknown or gone).
@@ -225,6 +285,7 @@ class Mempool(IngestLogPool):
                 self._txs_bytes -= len(entry.tx)
                 self._lane_counts[entry.lane] -= 1
         self._log_compact()
+        self._prio_compact()
 
     def push_committed_many(self, txs: list[bytes], keys: list[bytes]) -> None:
         """Commitpool insert of already-executed txs: caps + cache, no app

@@ -23,6 +23,15 @@ at ingest and frozen on the entry. Priority votes also enter a priority
 ingest log, so ``priority_entries_from`` and ``bulk_entries_from`` (the
 main log without them) partition the pool exactly; a priority vote that
 meets a full pool evicts the oldest bulk vote.
+
+Gossip (``txflow_tpu/pool/txvotepool.py:163-228``): each entry keeps the
+set of peers that delivered it (``has_sender``, ``has_sender_many``,
+``add_sender`` with its three codes) and its ingest origin
+(``origins_of``), and caches its length-prefixed wire segment, so a
+broadcast frame is a join of segments and the walks
+(``entries_from`` and the lane walks) yield ``(key, vote, height, seg)``.
+``in_cache`` peeks the dedup cache without touching it. The JAX pool's WAL
+is left out.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from __future__ import annotations
 import threading
 from dataclasses import dataclass, field
 
+from ..codec import amino
 from ..types import TxVote, encode_tx_vote
 from ..utils.cache import LRUCache
 from ..utils.config import MempoolConfig
@@ -58,6 +68,11 @@ class _PoolVote:
     # log and bulk_entries_from stay an exact partition of the main log
     # even if the hook's answer drifts later (a tx leaving the mempool)
     lane: int = -1
+    # the length-prefixed wire form: a gossip frame is a join of these
+    seg: bytes = b""
+    # the sender whose delivery created the entry (0 = local ingest),
+    # frozen at ingest: an invalid verdict is charged to it alone
+    origin: int = 0
 
 
 class TxVotePool(IngestLogPool):
@@ -85,6 +100,53 @@ class TxVotePool(IngestLogPool):
     def has(self, key: bytes) -> bool:
         with self._mtx:
             return key in self._votes
+
+    def has_sender(self, key: bytes, sender_id: int) -> bool:
+        with self._mtx:
+            entry = self._votes.get(key)
+            return entry is not None and sender_id in entry.senders
+
+    def has_sender_many(self, keys: list[bytes], sender_id: int) -> list[bool]:
+        """has_sender of a broadcast walk's batch under one lock hold."""
+        with self._mtx:
+            votes = self._votes
+            out = []
+            for k in keys:
+                entry = votes.get(k)
+                out.append(entry is not None and sender_id in entry.senders)
+            return out
+
+    def in_cache(self, key: bytes) -> bool:
+        """Dedup-cache membership without a push: True means a check_tx
+        of this key would be rejected with ErrTxInCache now (the receive
+        path skips re-gossip of committed votes with it)."""
+        return key in self.cache
+
+    # add_sender's codes (0 is falsy: "fall back to check_tx")
+    SENDER_GONE = 0  # the pool no longer holds the vote
+    SENDER_ADDED = 1  # a new sender recorded
+    SENDER_REPEAT = 2  # this peer already sent this signature
+
+    def add_sender(self, key: bytes, sender_id: int) -> int:
+        """Record that a peer holds this vote without re-ingesting it (the
+        reactor's wire-map hit). SENDER_GONE tells the caller to fall back
+        to check_tx, whose re-accept policy stays authoritative."""
+        with self._mtx:
+            entry = self._votes.get(key)
+            if entry is None:
+                return self.SENDER_GONE
+            if sender_id in entry.senders:
+                return self.SENDER_REPEAT
+            entry.senders.add(sender_id)
+            return self.SENDER_ADDED
+
+    def origins_of(self, keys: list[bytes]) -> list[int]:
+        """Ingest origin of each key (UNKNOWN_PEER_ID for keys removed or
+        ingested locally), one lock hold."""
+        with self._mtx:
+            votes = self._votes
+            return [UNKNOWN_PEER_ID if (e := votes.get(k)) is None else e.origin
+                    for k in keys]
 
     def txs_available(self) -> threading.Event:
         self._notify_available = True
@@ -136,23 +198,27 @@ class TxVotePool(IngestLogPool):
         self, votes: list[TxVote], tx_info: TxInfo | None = None
     ) -> list[Exception | None]:
         """Batched ingest: check_tx's decisions in order, errors returned
-        instead of raised, in bounded lock groups of 64 votes."""
+        instead of raised, in bounded lock groups of 64 votes; a group
+        that accepted nothing wakes no consumer."""
         tx_info = tx_info or TxInfo(UNKNOWN_PEER_ID)
         out: list[Exception | None] = [None] * len(votes)
         for base in range(0, len(votes), 64):
+            accepted = False
             with self._mtx:
                 for i in range(base, min(base + 64, len(votes))):
                     try:
                         self._ingest_locked(votes[i], tx_info, notify=False)
+                        accepted = True
                     except (ErrMempoolIsFull, ErrTxTooLarge, ErrTxInCache) as e:
                         out[i] = e
-                self._cond.notify_all()
-                if self._votes:
+                if accepted:
+                    self._cond.notify_all()
                     self._notify_txs_available()
         return out
 
     def _ingest_locked(self, vote: TxVote, tx_info: TxInfo, notify: bool = True) -> None:
-        vote_size = len(encode_tx_vote(vote))
+        encoded = encode_tx_vote(vote)
+        vote_size = len(encoded)
         lane = self._lane_quiet(vote)
         while (
             len(self._votes) >= self.config.size
@@ -177,7 +243,12 @@ class TxVotePool(IngestLogPool):
             if entry is not None:
                 entry.senders.add(tx_info.sender_id)
             raise ErrTxInCache()
-        self._votes[key] = _PoolVote(self.height, vote, {tx_info.sender_id}, vote_size, lane)
+        seg = vote._seg_cache
+        if seg is None:
+            seg = amino.length_prefixed(encoded)
+            object.__setattr__(vote, "_seg_cache", seg)
+        self._votes[key] = _PoolVote(self.height, vote, {tx_info.sender_id}, vote_size, lane,
+                                     seg, tx_info.sender_id)
         self._log_append(key, notify)
         if lane == LANE_PRIORITY:
             self._prio_log.append(key)
@@ -186,10 +257,10 @@ class TxVotePool(IngestLogPool):
     # -- consumption --
 
     def entries_from(self, cursor: int, limit: int = 256):
-        """Stable-cursor walk of live votes: (key, vote, height) tuples;
-        see IngestLogPool._entries_from for the cursor contract."""
+        """Stable-cursor walk of live votes: (key, vote, height, wire seg)
+        tuples; see IngestLogPool._entries_from for the cursor contract."""
         raw, pos = self._entries_from(cursor, limit)
-        return [(k, e.vote, e.height) for k, e in raw], pos
+        return [(k, e.vote, e.height, e.seg) for k, e in raw], pos
 
     def prio_seq(self) -> int:
         """Monotonic priority-ingest counter (seq()'s twin for the priority
@@ -210,7 +281,7 @@ class TxVotePool(IngestLogPool):
                 key = self._log[pos - self._log_base]
                 e = self._votes.get(key)
                 if e is not None and e.lane != LANE_PRIORITY:
-                    out.append((key, e.vote, e.height))
+                    out.append((key, e.vote, e.height, e.seg))
                 pos += 1
         return out, pos
 
@@ -224,7 +295,7 @@ class TxVotePool(IngestLogPool):
                 key = self._prio_log[pos - self._prio_log_base]
                 e = self._votes.get(key)
                 if e is not None:
-                    out.append((key, e.vote, e.height))
+                    out.append((key, e.vote, e.height, e.seg))
                 pos += 1
         return out, pos
 

@@ -44,6 +44,10 @@ class TxVote:
     )
     _wire_cache: bytes | None = field(default=None, repr=False, compare=False)
     _vk_cache: bytes | None = field(default=None, repr=False, compare=False)
+    # the length-prefixed wire form (a gossip frame's segment), built once
+    # by the pool at ingest; a decoded vote is shared by every co-located
+    # node through the reactor's wire map, so one build serves them all
+    _seg_cache: bytes | None = field(default=None, repr=False, compare=False)
 
     def __setattr__(self, name, value):
         # any semantic-field write invalidates the encode caches, so even
@@ -53,6 +57,7 @@ class TxVote:
             object.__setattr__(self, "_sb_cache", None)
             object.__setattr__(self, "_wire_cache", None)
             object.__setattr__(self, "_vk_cache", None)
+            object.__setattr__(self, "_seg_cache", None)
         object.__setattr__(self, name, value)
 
     def sign_bytes(self, chain_id: str) -> bytes:
@@ -90,6 +95,7 @@ class TxVote:
         oset(v, "_sb_cache", self._sb_cache)
         oset(v, "_wire_cache", self._wire_cache)
         oset(v, "_vk_cache", self._vk_cache)
+        oset(v, "_seg_cache", self._seg_cache)
         return v
 
     def vote_key(self) -> bytes:
@@ -278,6 +284,7 @@ def decode_tx_vote(data: bytes) -> TxVote:
     oset(vote, "signature", signature)
     oset(vote, "_sb_cache", None)
     oset(vote, "_vk_cache", None)
+    oset(vote, "_seg_cache", None)
     if signature and canonical and tx_key is not _ZERO_TXKEY:
         oset(vote, "_wire_cache", bytes(data))
     else:

@@ -4,12 +4,15 @@ Defaults mirror tendermint v0.31.2's mempool (txvotepool/txvotepool.go:
 198-208 reads config.Mempool) and the JAX package's EngineConfig
 (``txflow_tpu/utils/config.py:90-236``: the fields the threaded engine's
 loop, lanes, coalescer, committer and host-prep pool read, with the JAX
-defaults).
+defaults). ``Config`` gathers the sections a node reads -- mempool,
+engine, p2p -- and ``test_config`` is the tests' config
+(``txflow_tpu/utils/config.py:58,256,274``); the consensus, RPC, trace and
+instrumentation sections wait for their layers.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 @dataclass
@@ -18,6 +21,7 @@ class MempoolConfig:
     max_txs_bytes: int = 1024 * 1024 * 1024  # 1GB
     cache_size: int = 10000
     max_msg_bytes: int = 1024 * 1024  # max gossip msg (consensus/reactor.go:28)
+    broadcast: bool = True  # the gossip reactors' per-peer broadcast walks
 
 
 @dataclass
@@ -115,3 +119,30 @@ class EngineConfig:
     # side CUDA stream copies each step's packed result into pinned host
     # memory; <= 1 reads back on the caller at collect
     staging_ring: int = 2
+
+
+@dataclass
+class P2PConfig:
+    laddr: str = "tcp://0.0.0.0:26656"
+    persistent_peers: str = ""
+    max_num_inbound_peers: int = 40
+    max_num_outbound_peers: int = 10
+    send_rate: int = 5 * 1024 * 1024
+    recv_rate: int = 5 * 1024 * 1024
+    flush_throttle: float = 0.1
+    pex: bool = True
+
+
+@dataclass
+class Config:
+    mempool: MempoolConfig = field(default_factory=MempoolConfig)
+    p2p: P2PConfig = field(default_factory=P2PConfig)
+    engine: EngineConfig = field(default_factory=EngineConfig)
+
+
+def test_config() -> Config:
+    """The tests' config (reference cfg.ResetTestRoot): a small dedup
+    cache; the JAX one's consensus timeouts have no section here yet."""
+    c = Config()
+    c.mempool.cache_size = 1000
+    return c

@@ -52,6 +52,7 @@ class EventBus:
     def __init__(self):
         self._mtx = threading.Lock()
         self._subs: dict[str, list[Subscription]] = {}
+        self._callbacks: dict[str, list] = {}
 
     def subscribe(self, event_type: str, capacity: int = 1000) -> Subscription:
         sub = Subscription(capacity)
@@ -59,12 +60,21 @@ class EventBus:
             self._subs.setdefault(event_type, []).append(sub)
         return sub
 
+    def subscribe_callback(self, event_type: str, fn) -> None:
+        """Call ``fn(event)`` on the publishing thread for every event of
+        this type (a commit-latency probe reads its clock there)."""
+        with self._mtx:
+            self._callbacks.setdefault(event_type, []).append(fn)
+
     def publish(self, event_type: str, data: object = None) -> None:
         ev = Event(event_type, data)
         with self._mtx:
             subs = list(self._subs.get(event_type, []))
+            cbs = list(self._callbacks.get(event_type, []))
         for s in subs:
             s.deliver(ev)
+        for fn in cbs:
+            fn(ev)
 
 
 @dataclass

@@ -15,17 +15,29 @@ the same decision -- "is this signature valid, and does the tx now have
   raises; nothing falls back to the host verifier or to fewer devices.
 
 Both return bit-identical accept/reject masks and quorum decisions.
+
+Co-located engines (a ``node.LocalNet``: several validators on one host
+and one card) share one verifier and, with ``shared_cache``, one
+``VerifyCache`` (``txflow_tpu/verifier.py:62-239,344-419,1100-1190``):
+each distinct vote is verified once, by the engine that claims it, with
+the verify kernel alone (``ed25519_batch.verify_into``, the committee
+path's launch); its stake is tallied on the host. A vote another engine
+has in flight comes back ``dropped`` and is re-offered. Engines attach
+to a shared verifier (``attach``/``detach``): the last to leave closes
+its ring and host-prep pool.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from .crypto import ed25519 as host_ed
+from .crypto.hash import sha256
 from .ops import ed25519_batch, field, tally
 from .parallel.mesh import Mesh, sharded_compact_step_packed, to_host
 from .parallel.staging import StagingRing
@@ -67,6 +79,147 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+class VerifyCache:
+    """Cross-engine cache of signature verdicts, with claims.
+
+    A verdict is a pure function of (message, signature, public key).
+    When several engines share a process and a card, full-mesh gossip
+    hands every engine the same votes; the first engine to claim a vote
+    verifies it and the rest read its verdict here. Keys bind every input
+    -- sha256(len(msg) || msg || len(sig) || sig || pubkey), lengths
+    little-endian u32 -- so one signature reused over another payload or
+    under another key never aliases a verdict, and a key outlives a
+    validator-set change (it binds the resolved key, not an index).
+
+    A miss is claimed by the engine that asked first; another engine that
+    misses on it while the claim is live is told the vote is pending and
+    defers it. Claims older than ``claim_ttl`` are treated as abandoned
+    and handed to the next asker; the owner keeps them fresh while it
+    works (``claim_keepalive``) and stores or releases them at the end.
+    """
+
+    def __init__(self, capacity: int = 1 << 17, claim_ttl: float = 3.0):
+        from collections import OrderedDict
+
+        self.capacity = capacity
+        self.claim_ttl = claim_ttl
+        self._mtx = threading.Lock()
+        self._d: OrderedDict[bytes, bool] = OrderedDict()
+        self._inflight: dict[bytes, float] = {}  # key -> claim time
+        self.hits = 0
+        self.misses = 0
+        self.deferrals = 0
+
+    @staticmethod
+    def key(msg: bytes, sig: bytes, pub_key: bytes) -> bytes:
+        return sha256(
+            len(msg).to_bytes(4, "little")
+            + msg
+            + len(sig).to_bytes(4, "little")
+            + sig
+            + pub_key
+        )
+
+    def lookup_or_claim_many(
+        self, keys: list[bytes | None]
+    ) -> tuple[list[bool | None], np.ndarray]:
+        """One lock hold: resolve hits, claim unclaimed misses for this
+        caller, flag misses in flight elsewhere. Returns (vals, pending):
+        vals[i] is the cached verdict or None; pending[i] True means
+        another caller owns the miss (defer it). A None val with pending
+        False is this caller's claim, owed a store_many or release_many.
+        A None key is skipped."""
+        n = len(keys)
+        vals: list[bool | None] = [None] * n
+        pending = np.zeros(n, dtype=bool)
+        now = time.monotonic()
+        stale = now - self.claim_ttl
+        with self._mtx:
+            d = self._d
+            infl = self._inflight
+            for i, k in enumerate(keys):
+                if k is None:
+                    continue
+                v = d.get(k)
+                if v is not None:
+                    d.move_to_end(k)
+                    vals[i] = v
+                    self.hits += 1
+                    continue
+                t = infl.get(k)
+                if t is not None and t > stale:
+                    pending[i] = True
+                    self.deferrals += 1
+                else:
+                    self.misses += 1
+                    infl[k] = now  # claimed by this caller
+        return vals, pending
+
+    def release_many(self, keys: list[bytes]) -> None:
+        """Drop claims without storing verdicts (the verify failed)."""
+        with self._mtx:
+            for k in keys:
+                self._inflight.pop(k, None)
+
+    def store_many(self, pairs: list[tuple[bytes, bool]]) -> None:
+        with self._mtx:
+            d = self._d
+            infl = self._inflight
+            for k, v in pairs:
+                d[k] = v
+                d.move_to_end(k)
+                infl.pop(k, None)
+            while len(d) > self.capacity:
+                d.popitem(last=False)
+
+    def heartbeat_many(self, keys: list[bytes]) -> None:
+        """Re-stamp claims still live (released or stored ones stay so)."""
+        now = time.monotonic()
+        with self._mtx:
+            infl = self._inflight
+            for k in keys:
+                if k in infl:
+                    infl[k] = now
+
+    def claim_keepalive(self, keys: list[bytes]) -> "_ClaimKeepalive":
+        """A context that heartbeats ``keys`` every claim_ttl/2 until it
+        exits: the owner's verify can outlast the TTL, and a stale claim
+        would send the same votes to every other engine."""
+        return _ClaimKeepalive(self, keys)
+
+
+class _ClaimKeepalive:
+    """Background heartbeat for VerifyCache claims (claim_keepalive)."""
+
+    def __init__(self, cache: VerifyCache, keys: list[bytes]):
+        self._cache = cache
+        self._keys = keys
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    def __enter__(self) -> "_ClaimKeepalive":
+        if self._keys:
+            self._thread = threading.Thread(
+                target=self._run, name="verify-claim-keepalive", daemon=True
+            )
+            self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        interval = max(self._cache.claim_ttl / 2, 0.01)
+        # a first beat at once: the claims were stamped at lookup, maybe a
+        # while before this thread ran
+        self._cache.heartbeat_many(self._keys)
+        while not self._stop.wait(interval):
+            self._cache.heartbeat_many(self._keys)
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=1.0)
+            self._thread = None
 
 
 @dataclass
@@ -140,6 +293,79 @@ class _FusedDeviceTicket(VerifyTicket):
             ~self._keep,
         )
         return self._done
+
+
+class _CachedDeviceTicket(VerifyTicket):
+    """Dispatched verify of a cache miss set: the kernel's int32 validity
+    of the claimed rows rides the readback ring; ``result()`` stores the
+    verdicts (or, on a failed readback, releases the claims), merges them
+    with the hits and tallies the stake on the host, in int64. The claims
+    stay held, kept alive, from dispatch to result."""
+
+    __slots__ = ("_cache", "_out", "_ring", "_slot", "_keepalive", "_miss_idx",
+                 "_miss_keys", "_keys", "_valid", "_tx_slot", "_n_slots", "_prior",
+                 "_quorum", "_keep", "_pending", "_powers", "_val_idx", "_done")
+
+    def __init__(self, cache, out, ring, keepalive, miss_idx, miss_keys, keys, valid,
+                 tx_slot, n_slots, prior, quorum, keep, pending, powers, val_idx):
+        self._cache = cache
+        self._out = out  # int32 [b] validity, not yet read back
+        self._ring = ring
+        self._slot = None if ring is None else ring.submit([out])
+        self._keepalive = keepalive
+        self._miss_idx = miss_idx
+        self._miss_keys = miss_keys
+        self._keys = keys
+        self._valid = valid
+        self._tx_slot = tx_slot
+        self._n_slots = n_slots
+        self._prior = prior
+        self._quorum = quorum
+        self._keep = keep
+        self._pending = pending
+        self._powers = powers
+        self._val_idx = val_idx
+        self._done: TallyResult | None = None
+
+    def result(self) -> TallyResult:
+        if self._done is not None:
+            return self._done
+        # re-stamp from the collecting thread: the readback may start long
+        # after the dispatch (the pipelined engine)
+        self._cache.heartbeat_many(self._miss_keys)
+        try:
+            flat = (self._out.cpu().numpy() if self._ring is None
+                    else self._ring.result(self._slot))
+        except BaseException:
+            # claims must not outlive a failed readback: the other engines
+            # would wait out the TTL
+            self._keepalive.__exit__(None, None, None)
+            self._cache.release_many(self._miss_keys)
+            raise
+        self._out = self._slot = None
+        self._keepalive.__exit__(None, None, None)
+        sub_valid = flat[: len(self._miss_idx)].astype(bool)
+        self._cache.store_many(
+            [(self._keys[i], bool(v)) for i, v in zip(self._miss_idx, sub_valid)]
+        )
+        valid = self._valid
+        valid[self._miss_idx] = sub_valid
+        self._done = _host_tally(valid, self._tx_slot, self._n_slots, self._prior,
+                                 self._quorum, self._keep, self._pending, self._powers,
+                                 self._val_idx)
+        return self._done
+
+
+def _host_tally(valid, tx_slot, n_slots, prior, quorum, keep, pending, powers,
+                val_idx) -> TallyResult:
+    """The cache path's tally: prior plus each valid vote's power in its
+    slot, int64 (``txflow_tpu/verifier.py:1170-1190``). A pending vote is
+    dropped for re-offer, like an in-batch repeat."""
+    stake = (np.zeros(n_slots, dtype=np.int64) if prior is None
+             else np.asarray(prior, dtype=np.int64).copy())
+    ok = valid & (tx_slot >= 0) & (tx_slot < n_slots)
+    np.add.at(stake, tx_slot[ok], powers[val_idx[ok]].astype(np.int64))
+    return TallyResult(valid, stake, stake >= quorum, ~keep | pending)
 
 
 def first_occurrence_mask(tx_slot, val_idx) -> np.ndarray:
@@ -294,15 +520,27 @@ class DeviceVoteVerifier:
     ring of ``staging_ring`` slots (``parallel/staging.py``: a side CUDA
     stream per card into pinned memory); ``warm`` runs one all-padding
     step, ``close`` drains the ring and closes the pool.
+
+    ``shared_cache`` (True: a cache of its own; a ``VerifyCache``: shared
+    with other verifiers) turns on the cache path: a batch's misses that
+    this caller claims are verified by the verify kernel alone, padded to
+    the finer ``miss_buckets`` ladder, and the stake is tallied on the
+    host. The cache path runs on one device; with a mesh it raises (the
+    JAX sharded verify-only program is not ported). Engines sharing the
+    verifier ``attach`` and ``detach``; the last detach closes it.
     """
 
     def __init__(self, val_set: ValidatorSet, device=None, mesh: Mesh | None = None,
                  fe_radix: int | None = None, staging_ring: int = 2,
-                 buckets=DEFAULT_BUCKETS):
+                 buckets=DEFAULT_BUCKETS, shared_cache: "VerifyCache | bool | None" = None):
         if mesh is not None:
             if device is not None:
                 raise ValueError("pass a device or a mesh, not both")
+            if shared_cache:
+                raise ValueError("the verify cache runs on one device, not on a mesh")
             resolve_device(mesh.devices[0])
+        self.cache: VerifyCache | None = (
+            VerifyCache() if shared_cache is True else (shared_cache or None))
         self.mesh = mesh
         self.fe_radix = field.resolve(fe_radix)
         self._n_shards = 1 if mesh is None else mesh.size
@@ -314,6 +552,14 @@ class DeviceVoteVerifier:
         # the engine drains no batch beyond the largest rung
         self.buckets = tuple(buckets)
         self.max_batch = max(self.buckets)
+        # the cache path's miss sets are a share of a drain (other engines
+        # claim the rest): a finer ladder, each rung's quarter and
+        # sixteenth added (``txflow_tpu/verifier.py:701-723``)
+        self.miss_buckets = tuple(sorted(
+            {max(64, b // 16) for b in self.buckets}
+            | {max(64, b // 4) for b in self.buckets}
+            | set(self.buckets)
+        ))
         self.capacity = _next_pow2(max(val_set.size(), 4))
         self._stage = self._build_stage(val_set)
         # readback ring (parallel/staging.py), made at the first submit;
@@ -322,6 +568,12 @@ class DeviceVoteVerifier:
         self._ring: StagingRing | None = None
         self._host_pool = None
         self._mtx = threading.Lock()
+        self._users = 0  # attached engines
+        self._engines = 0  # engines built over it (bind); more than one: shared
+        # the cache path's verify launches and the rows they carried
+        # (real rows, before padding): each distinct vote at most once
+        self.cache_verify_calls = 0
+        self.cache_verify_rows = 0
 
     @property
     def val_set(self) -> ValidatorSet:
@@ -392,6 +644,39 @@ class DeviceVoteVerifier:
                     self._host_pool = make_host_pool(workers, backend, name="hostprep-verify")
         return self._host_pool
 
+    def bind(self, n: int = 1) -> None:
+        """An engine is built over this verifier (``n`` = -1: it moved to
+        another). With more than one, no engine restages it for its own
+        set: the others still serve the old one."""
+        with self._mtx:
+            self._engines += n
+
+    @property
+    def shared(self) -> bool:
+        return self._engines > 1
+
+    def attach(self) -> None:
+        """An engine starts serving from this verifier."""
+        with self._mtx:
+            self._users += 1
+
+    def detach(self) -> bool:
+        """An engine stops; the last one out closes the verifier (ring and
+        host-prep pool). Returns True when it closed. A verifier no engine
+        attached to closes at once."""
+        with self._mtx:
+            self._users = max(self._users - 1, 0)
+            last = self._users == 0
+        if last:
+            self.close()
+        return last
+
+    @property
+    def warm_ladder(self) -> tuple:
+        """The rungs a served step dispatches at: the miss ladder on the
+        cache path, else the bucket ladder."""
+        return self.miss_buckets if self.cache is not None else self.buckets
+
     def staging_stats(self) -> dict | None:
         """The readback ring's counters (None before the first submit)."""
         ring = self._ring
@@ -416,6 +701,19 @@ class DeviceVoteVerifier:
         shapes and the readback ring's pinned buffers are paid here, not
         by the first served step."""
         st = self._stage
+        if self.cache is not None:  # the cache path's launch: verify alone
+            b = bucket_size(rows, self.miss_buckets)
+            batch = ed25519_batch.CompactBatch(
+                np.zeros((b, 64), np.uint8), np.zeros((b, 64), np.uint8),
+                np.zeros(b, np.int32), np.zeros((b, 32), np.uint8), np.zeros(b, np.uint8),
+                np.zeros(b, bool))
+            out = self._dispatch_verify_only(batch, b, st)
+            ring = self._staging_ring()
+            if ring is None:
+                out.cpu()
+            else:
+                ring.result(ring.submit([out]))
+            return
         b = bucket_size(rows, self.buckets, multiple=self._n_shards)
         batch = ed25519_batch.CompactBatch(
             np.zeros((b, 64), np.uint8), np.zeros((b, 64), np.uint8), np.zeros(b, np.int32),
@@ -455,6 +753,10 @@ class DeviceVoteVerifier:
         tx_slot = np.asarray(tx_slot, dtype=np.int32)
         keep = first_occurrence_mask(tx_slot, val_idx)
         st = self._stage
+        if self.cache is not None:
+            q = st.val_set.quorum_power() if quorum is None else quorum
+            return self._submit_cached(msgs, sigs, val_idx, tx_slot, n_slots, prior_stake,
+                                       q, keep, st)
         batch = ed25519_batch.prepare_compact(msgs, sigs, val_idx, st.epoch,
                                               pool=self._host_pool)
         batch.pre_ok &= keep
@@ -500,6 +802,79 @@ class DeviceVoteVerifier:
             parts = self._step(*args)
         return _FusedDeviceTicket(parts, self._staging_ring(), n, n_slots, b, b_slots, keep,
                                   st.wide)
+
+    def _submit_cached(self, msgs, sigs, val_idx, tx_slot, n_slots, prior_stake, q, keep,
+                       st) -> VerifyTicket:
+        """The cache path (``txflow_tpu/verifier.py:1098-1190``): verify on
+        the device only the misses this caller claims, take hits from the
+        cache, defer misses another caller has in flight (dropped, for
+        re-offer), and tally on the host. Decisions equal the fused
+        step's: the tally is the same prior plus sum over valid
+        first-occurrence votes, and a verdict is a pure function the cache
+        memoizes. A failed dispatch releases its claims and raises."""
+        n = len(msgs)
+        n_vals = len(st.pub_keys)  # the real set: a pad index is unknown
+        keys: list[bytes | None] = [
+            VerifyCache.key(msgs[i], sigs[i], st.pub_keys[int(val_idx[i])])
+            if keep[i] and 0 <= val_idx[i] < n_vals
+            else None
+            for i in range(n)
+        ]
+        cached, pending = self.cache.lookup_or_claim_many(keys)
+        valid = np.zeros(n, dtype=bool)
+        miss_idx = []
+        for i in range(n):
+            if keys[i] is None or pending[i]:
+                continue  # unknown validator, in-batch repeat, or in flight
+            if cached[i] is None:
+                miss_idx.append(i)
+            else:
+                valid[i] = cached[i]
+        if not miss_idx:  # all hits and deferrals: nothing to launch
+            return ReadyTicket(_host_tally(valid, tx_slot, n_slots, prior_stake, q, keep,
+                                           pending, st.powers, val_idx))
+        miss_keys = [keys[i] for i in miss_idx]
+        ka = self.cache.claim_keepalive(miss_keys)
+        ka.__enter__()
+        try:
+            m = len(miss_idx)
+            batch = ed25519_batch.prepare_compact(
+                [msgs[i] for i in miss_idx], [sigs[i] for i in miss_idx], val_idx[miss_idx],
+                st.epoch, pool=self._host_pool)
+            out = self._dispatch_verify_only(batch, bucket_size(m, self.miss_buckets), st)
+            with self._mtx:
+                self.cache_verify_calls += 1
+                self.cache_verify_rows += m
+            ticket = _CachedDeviceTicket(
+                self.cache, out, self._staging_ring(), ka, miss_idx, miss_keys, keys, valid,
+                tx_slot, n_slots, prior_stake, q, keep, pending, st.powers, val_idx)
+        except BaseException:
+            # claims must not outlive a failed dispatch: the other engines
+            # would wait out the TTL
+            ka.__exit__(None, None, None)
+            self.cache.release_many(miss_keys)
+            raise
+        return ticket
+
+    def _dispatch_verify_only(self, batch, b: int, st) -> torch.Tensor:
+        """Pad the prepared rows to ``b``, copy them to the device and
+        launch the verify kernel alone (``ed25519_batch.verify_into``, one
+        ``verify`` launch; its plain version for the CPU). Returns the
+        int32 [b] validity, not read back."""
+        pad = b - batch.size
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(_pad(a, pad))).to(self.device)
+
+        args = (dev(batch.s_nibbles), dev(batch.h_nibbles), dev(batch.val_idx),
+                st.tables_dev, st.quarters_dev, dev(batch.r_y), dev(batch.r_sign),
+                dev(batch.pre_ok))
+        if self.device.type == "cpu":
+            return ed25519_batch.verify_kernel_gather_plain(
+                *args, fe_radix=self.fe_radix).to(torch.int32)
+        out = torch.empty((b,), dtype=torch.int32, device=self.device)
+        ed25519_batch.verify_into(out, *args, fe_radix=self.fe_radix)
+        return out
 
     def _staging_ring(self) -> "StagingRing | None":
         if self.staging_depth < 2:
