@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py                # one card: build, kernels, slice (serial, threaded, lanes), K8, int64, committee, mesh (serial, threaded)
+    python3 chip_smoke.py                # one card: build, kernels, slice (serial, threaded, lanes), K8, int64, committee, mesh (serial, threaded), LocalNet, sync
     python3 chip_smoke.py --cross-card   # two or more cards: the kernels on each
     python3 chip_smoke.py --mesh         # four cards: K5/K7 and the mesh cell over them (serial, threaded)
     python3 chip_smoke.py --localnet     # one card: the LocalNet cell alone
+    python3 chip_smoke.py --sync         # one card: the catch-up sync cell alone
 
 1. Builds the CUDA sources of txflow_tpu_torch/csrc with nvcc (one process
    per source, in parallel) and prints the card and the build time.
@@ -205,6 +206,39 @@ plain version on the CPU and K3 also against the golden model.
    the launches); the K3 and K6 rows carry its verify launches in
    launches_by_path.
 
+   Every node also runs catch-up sync at the JAX defaults (SyncConfig()):
+   the line carries each node's sync client (rounds, fetched, applied,
+   timeouts, rotations), the host verifies of its full-set re-check (the
+   host loop, counted apart: the gate's "no host verify" is every other
+   thread's) and its threads' CPU seconds.
+
+12. Catch-up sync, after phase 11: bench.py's net cell in its committee
+   posture (bench.py:483-535, --committee-size 32) -- 256 validators at
+   power 10, a static committee of 32 (EpochConfig(length=0)), a LocalNet
+   hosting 4 nodes, one DeviceVoteVerifier staged on the committee with
+   shared_cache=True, sign=False, mempool_broadcast=False, SyncConfig() at
+   the JAX defaults (batch 64, window 4, max_range 256, max_resp_bytes 512
+   KiB, request_timeout 1 s), node 3 durable (FileDB stores). 4096 txs x
+   32 members = 131,072 votes, signed first, with config 4's mix scaled to
+   the committee (1/16 of the txs one member's S byte flipped, 1/16 eleven
+   members: those never commit). 1024 txs into all 4 nodes in chunks of
+   256, crash_node(3) and wipe_node(3), 3072 txs into nodes 0-2, then
+   revive_node(3): it must recover every committed tx through the sync
+   channel, each response's certificates re-checked by one K6 launch
+   (BatchCertVerifier) on the card before anything is applied. Checks:
+   node 3 holds exactly the expected txs, each row some live node's, no
+   flipped vote in any certificate and each over 2/3 of the committee,
+   the four kvstore states equal, node 3's client applied them all with
+   no byzantine strike and went idle, its commit-order log its server's
+   prefix when it never rotated, its K6 launches above 0 and no plain
+   version. Prints {"sync": ...} (the catch-up wall and txs/s, rounds,
+   requests, responses, timeouts, rotations, K6 launches and rows a
+   launch, the card's busy ms over the catch-up from a CUDA-only trace and
+   its share, host seconds of decode, hash checks, sign bytes, the K6 call
+   and apply + store on node 3's client thread, GC seconds, the live
+   nodes' commit walls before and after the crash); the K6 rows carry its
+   launches in launches_by_path.
+
 ``--mesh`` runs only phase 5, its kernel rows and the threaded mesh cell,
 over 4 distinct cards: the engine builds its own mesh from mesh_devices=4
 (make_mesh).
@@ -226,6 +260,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -313,6 +348,15 @@ NET_TXS = 25_000
 NET_CHUNK = 2048
 NET_BUCKET = 4096
 NET_PREP_WORKERS = 8
+# Sync phase: bench.py's net cell in its committee posture (--committee-size
+# 32, bench.py:483-535): 256 validators at power 10, a static committee of
+# 32 (EpochConfig(length=0)), 4 hosted nodes, node 3 durable; SYNC_TXS txs
+# x 32 members, SYNC_PRE of them before node 3 is crashed and wiped, in
+# chunks of SYNC_CHUNK txs
+SYNC_TXS = 4096
+SYNC_PRE = 1024
+SYNC_CHUNK = 256
+SYNC_BAD_MEMBERS = 11  # flipped on 1/16 of the txs: honest stake 210 < quorum 214
 # the standalone tally kernels: no served step launches them (the tally
 # rides in the fused verify's encode launch, fused_kernel)
 STANDALONE_TALLY = ("tally", "tally64", "tally_partial", "tally_partial64")
@@ -1281,13 +1325,16 @@ def slice_phase(corpus: Corpus, dev, fe_radix: int = 25, scale: int = 1, ref: di
 
 def _count_host_verifies() -> tuple[dict, object]:
     """Wrap the host verifiers to count their calls (a run of the device
-    path makes none). Returns (counts, restore)."""
-    calls = {"n": 0}
+    path makes none): ``n`` counts them, except those of a node's catch-up
+    sync client (its thread, "sync-manager"), which ``sync`` counts -- in
+    full-set mode that client re-checks fetched certificates on the host,
+    as the JAX client does. Returns (counts, restore)."""
+    calls = {"n": 0, "sync": 0}
     originals = (host_ed.verify, host_ed.verify_pure)
 
     def counting(fn):
         def wrapped(*a, **k):
-            calls["n"] += 1
+            calls["sync" if threading.current_thread().name == "sync-manager" else "n"] += 1
             return fn(*a, **k)
         return wrapped
 
@@ -3335,6 +3382,7 @@ def localnet_phase(dev, corpus: "NetCorpus | None" = None, n_txs: int = NET_TXS,
             torch.cuda.synchronize() if dev.type == "cuda" else None
         cpu1 = _thread_cpu_s()
         launches = dict(_lib.launches)
+        sync_snaps = [n.sync_manager.snapshot() for n in net.nodes]
         try:
             device = trace_device_ms(trace) if trace is not None else {}
         except Exception as e:  # noqa: BLE001 -- a measurement, never a check
@@ -3345,6 +3393,7 @@ def localnet_phase(dev, corpus: "NetCorpus | None" = None, n_txs: int = NET_TXS,
                 setattr(m, n, fn)
         restore_host()
         net.stop()
+    sync_host_s = {k: cpu1[k] - cpu0.get(k, 0.0) for k in cpu1 if k.startswith("sync")}
     require(verifier.staging_stats() is None, "the last engine's stop left the verifier open")
     # -- the gate --
     power = {v.address: v.voting_power for v in net.val_set}
@@ -3370,7 +3419,7 @@ def localnet_phase(dev, corpus: "NetCorpus | None" = None, n_txs: int = NET_TXS,
     require(launches["verify"] > 0, "no verify launch on the LocalNet path")
     require(launches[fused_kernel()] == 0, "a fused step ran on the cache path")
     require(plain_calls["n"] == 0, f"{plain_calls['n']} plain-version calls on the card")
-    require(host_calls["n"] == 0, f"{host_calls['n']} host verifies")
+    require(host_calls["n"] == 0, f"{host_calls['n']} host verifies outside the sync clients")
     require(verifier.cache_verify_rows <= corpus.n_votes,
             f"{verifier.cache_verify_rows} rows verified for {corpus.n_votes} distinct votes")
     lat_ms = sorted((d[h] - inject_t[h]) * 1e3 for d in commit_t for h in d if h in inject_t)
@@ -3397,6 +3446,12 @@ def localnet_phase(dev, corpus: "NetCorpus | None" = None, n_txs: int = NET_TXS,
                   "verify_calls": verifier.cache_verify_calls},
         "launches": {k: v for k, v in launches.items() if v},
         "verify_launches": launches["verify"],
+        # catch-up sync at the JAX defaults on every node: what each
+        # client fetched and applied while the nodes drifted apart, and the
+        # host verifies its full-set re-check made
+        "sync": [_sync_json(sn) for sn in sync_snaps],
+        "sync_host_verifies": host_calls["sync"],
+        "sync_host_s": sync_host_s,
     }
     log(f"localnet: {committed_votes} certificate votes on 4 nodes in {wall:.2f} s = "
         f"{out['committed_votes_per_s']:.0f} votes/s; commit p50 {out['p50_commit_ms']:.1f} ms, "
@@ -3404,6 +3459,362 @@ def localnet_phase(dev, corpus: "NetCorpus | None" = None, n_txs: int = NET_TXS,
         f"the card busy {out['device_ms']} ms = {out['device_share']} of the wall; "
         f"gc {gcc.s:.2f} s; cache hits {verifier.cache.hits}, misses {verifier.cache.misses}, "
         f"deferrals {verifier.cache.deferrals}")
+    return out
+
+
+class SyncCorpus:
+    """The sync cell's corpus: ``COM_VALS`` validators at ``NET_POWER``, the
+    static committee of ``COM_SIZE`` sampled as ``bench.py:490-499`` samples
+    it (chain ``NET_CHAIN``, epoch 0), ``n_txs`` txs with a vote of every
+    member, signed before the timed part, with config 4's check mix scaled
+    to the committee: for 1/16 of the txs (chosen from the seed) one
+    member's S byte is flipped (the tx commits without that vote), for
+    another 1/16 ``SYNC_BAD_MEMBERS`` members are (the honest stake stays
+    under the committee's quorum: the tx commits on no node)."""
+
+    def __init__(self, seed: int, n_txs: int = SYNC_TXS):
+        from txflow_tpu_torch.committee import sample_committee
+
+        rng = np.random.default_rng(seed)
+        seeds = [rng.bytes(32) for _ in range(COM_VALS)]
+        self.priv_vals = [MockPV(s) for s in seeds]
+        self.full = ValidatorSet([Validator.from_pub_key(pv.get_pub_key(), NET_POWER)
+                                  for pv in self.priv_vals])
+        self.epoch_config = EpochConfig(length=0, committee_size=COM_SIZE)
+        ec = self.epoch_config
+        self.committee = sample_committee(self.full, NET_CHAIN, 0, COM_SIZE,
+                                          min_size=ec.committee_min_size,
+                                          min_stake_frac=ec.committee_min_stake_frac)
+        seed_of = {pv.get_address(): sd for pv, sd in zip(self.priv_vals, seeds)}
+        self.n_txs = n_txs
+        self.txs = [b"stx%05d=%d" % (i, i) for i in range(n_txs)]
+        perm = rng.permutation(n_txs)
+        k = n_txs // 16
+        bad: dict[int, set] = {}
+        for t in perm[:k].tolist():
+            bad[t] = {int(rng.integers(COM_SIZE))}
+        for t in perm[k : 2 * k].tolist():
+            bad[t] = set(rng.choice(COM_SIZE, size=SYNC_BAD_MEMBERS, replace=False).tolist())
+        self.n_one_bad, self.n_many_bad = k, k
+        self.votes_by_member: list[list[TxVote]] = [[] for _ in range(COM_SIZE)]
+        items = []
+        for t, tx in enumerate(self.txs):
+            key = hashlib.sha256(tx).digest()
+            for m, val in enumerate(self.committee):
+                vote = TxVote(0, key.hex().upper(), key, 1_700_000_000_000_000_000 + t,
+                              val.address)
+                items.append((seed_of[val.address], vote.sign_bytes(NET_CHAIN)))
+                self.votes_by_member[m].append(vote)
+        t0 = time.perf_counter()
+        sigs = iter(_sign_all(items))
+        self.sign_s = time.perf_counter() - t0
+        self.bad_sigs: set[bytes] = set()
+        for t in range(n_txs):
+            for m in range(COM_SIZE):
+                sig = next(sigs)
+                if m in bad.get(t, ()):
+                    sig = sig[:45] + bytes([sig[45] ^ 0x01]) + sig[46:]  # an S byte
+                    self.bad_sigs.add(sig)
+                self.votes_by_member[m][t].signature = sig
+        quorum = self.committee.quorum_power()
+        self.expect = [NET_POWER * (COM_SIZE - len(bad.get(t, ()))) >= quorum
+                       for t in range(n_txs)]
+        self.n_votes = COM_SIZE * n_txs
+
+
+class ThreadTimers:
+    """Host seconds spent in wrapped functions, added up by (thread, name):
+    the sync client's decode, hash checks, sign bytes and apply run on its
+    own thread, beside the other nodes' clients."""
+
+    def __init__(self):
+        self.s: dict[tuple[int, str], float] = {}
+        self.n: dict[tuple[int, str], int] = {}
+        self._lock = threading.Lock()
+        self._undo: list = []
+
+    def wrap(self, owner, attr: str, name: str) -> None:
+        fn = getattr(owner, attr)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                key = (threading.get_ident(), name)
+                with self._lock:
+                    self.s[key] = self.s.get(key, 0.0) + time.perf_counter() - t0
+
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, fn))
+
+    def restore(self) -> None:
+        for owner, attr, fn in reversed(self._undo):
+            setattr(owner, attr, fn)
+        self._undo.clear()
+
+    def count(self, owner, attr: str, name: str, key) -> None:
+        """Count the calls of ``owner.attr`` under (key(args), name)."""
+        fn = getattr(owner, attr)
+
+        def counted(*a, **k):
+            with self._lock:
+                kk = (key(a), name)
+                self.n[kk] = self.n.get(kk, 0) + 1
+            return fn(*a, **k)
+
+        setattr(owner, attr, counted)
+        self._undo.append((owner, attr, fn))
+
+    def of(self, ident: int) -> dict[str, float]:
+        return {name: t for (i, name), t in self.s.items() if i == ident}
+
+
+def _sync_json(snap: dict) -> dict:
+    keys = ("state", "rounds_ok", "rounds_failed", "fetched", "applied", "timeouts",
+            "rotations", "byzantine_strikes", "fallbacks", "served", "last_server")
+    return {k: snap[k] for k in keys}
+
+
+def sync_phase(dev, corpus: "SyncCorpus | None" = None, pre: int = SYNC_PRE,
+               chunk: int = SYNC_CHUNK, timeout: float = 300.0) -> dict:
+    """Catch-up sync through the port's network layer, in the committee
+    posture of bench.py's net cell (``bench.py:483-535``): a ``LocalNet`` of
+    256 validators at power 10 hosting 4 nodes, a static committee of 32
+    (``EpochConfig(length=0, committee_size=32)``), one shared
+    ``DeviceVoteVerifier`` on the card staged on the committee with
+    ``shared_cache=True`` and bench.py's buckets, ``sign=False``,
+    ``mempool_broadcast=False``, ``SyncConfig()`` at its defaults, node 3
+    durable (``make_durable``) under a temporary directory.
+
+    Timed: the first ``pre`` txs are injected in chunks of ``chunk`` (the
+    txs into every live mempool, member m's votes into node m mod live
+    nodes), until all 4 nodes committed them; ``crash_node(3)`` and
+    ``wipe_node(3)``; the rest into nodes 0-2 until they committed them;
+    then ``revive_node(3)``, timed until node 3's store holds every tx that
+    should commit: all through the sync channel, each response's
+    certificates re-checked by one ``BatchCertVerifier`` launch (K6) on the
+    card before anything is applied.
+
+    The gate: node 3 holds exactly the expected txs, each certificate row
+    equal to some live node's; no certificate on any node holds a flipped
+    vote, each carries more than 2/3 of the committee's power; the four
+    kvstore states are equal; node 3's client applied the expected count
+    with no byzantine strike and went back to idle; with no rotation its
+    commit-order log is its last server's prefix; its K6 launches are above
+    0 and no plain version ran."""
+    import tempfile
+
+    from txflow_tpu_torch.node import LocalNet
+    from txflow_tpu_torch.sync import manager as sync_manager
+    from txflow_tpu_torch.utils.config import test_config
+
+    corpus = corpus or SyncCorpus(SEED + 13)
+    log(f"sync corpus: {corpus.n_votes} votes signed in {corpus.sign_s:.1f} s; committee of "
+        f"{COM_SIZE} of {COM_VALS} (quorum {corpus.committee.quorum_power()}); "
+        f"{corpus.n_one_bad} txs with one member corrupted, {corpus.n_many_bad} with "
+        f"{SYNC_BAD_MEMBERS} (never commit)")
+    cfg = test_config()
+    cfg.mempool.size = max(cfg.mempool.size, 4 * corpus.n_txs * (COM_SIZE + 1))
+    cfg.mempool.cache_size = max(cfg.mempool.cache_size, 2 * cfg.mempool.size)
+    cfg.engine.device = dev.type
+    cfg.engine.min_batch = 3072  # bench.py's device defaults
+    cfg.engine.batch_wait = 0.05
+    cfg.engine.host_prep_workers = NET_PREP_WORKERS
+    cfg.engine.host_prep_backend = "process"
+    verifier = DeviceVoteVerifier(corpus.committee, device=dev,
+                                  buckets=(NET_BUCKET, 4 * NET_BUCKET), shared_cache=True)
+    root = tempfile.mkdtemp(prefix="txflow-sync-")
+    net = LocalNet(COM_VALS, chain_id=NET_CHAIN, config=cfg, priv_vals=corpus.priv_vals,
+                   sign=False, mempool_broadcast=False, verifier=verifier, n_nodes=4,
+                   device=dev.type, epoch_config=corpus.epoch_config, sync_config=SyncConfig())
+    net.make_durable(3, os.path.join(root, "node3"))
+    require(net.val_set.hash() == corpus.full.hash(), "the net's set is not the corpus'")
+    require(all(n.txflow.val_set.hash() == corpus.committee.hash() for n in net.nodes),
+            "an engine does not tally against the sampled committee")
+    plain_calls = {"n": 0}
+    plains = {m: [(n, getattr(m, n)) for n in names] for m, names in (
+        (ed25519_batch, ("verify_kernel_gather_plain", "verify_kernel_plain")),
+        (tally, ("compact_step_packed_plain", "tally_plain")))}
+
+    def counting(fn):
+        def wrapped(*a, **k):
+            plain_calls["n"] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    for m, fns in plains.items():
+        for n, fn in fns:
+            setattr(m, n, counting(fn))
+    timers = ThreadTimers()
+    timers.wrap(sync_manager, "_decode_votes", "decode")
+    timers.wrap(sync_manager, "sign_bytes_many", "sign_bytes")
+    # the client's own sha256 calls only: a stand-in for its hashlib
+    sync_hashlib = sync_manager.hashlib
+    sync_manager.hashlib = types.SimpleNamespace(sha256=hashlib.sha256)
+    timers.wrap(sync_manager.hashlib, "sha256", "hash_check")
+    timers.wrap(TxFlow, "apply_synced_commit", "apply_store")
+    timers.wrap(BatchCertVerifier, "verify_and_tally", "k6_call")
+    # requests by the sending thread, responses by the receiving client
+    timers.count(sync_manager.wire, "encode_range_req", "requests",
+                 lambda a: threading.get_ident())
+    timers.count(sync_manager.SyncManager, "note_response", "responses", lambda a: id(a[0]))
+    hashes = [hashlib.sha256(tx).hexdigest().upper() for tx in corpus.txs]
+    want_h = [h for h, ok in zip(hashes, corpus.expect) if ok]
+
+    def inject(lo: int, hi: int, nodes: list) -> None:
+        for base in range(lo, hi, chunk):
+            top = min(base + chunk, hi)
+            for node in nodes:
+                require(not any(node.mempool.check_tx_many(corpus.txs[base:top])),
+                        "a mempool rejected a tx")
+            for m in range(COM_SIZE):
+                nodes[m % len(nodes)].tx_vote_pool.check_tx_many(
+                    corpus.votes_by_member[m][base:top])
+
+    def want_txs(lo: int, hi: int) -> list[bytes]:
+        return [corpus.txs[t] for t in range(lo, hi) if corpus.expect[t]]
+
+    trace = None
+    try:
+        t0 = time.perf_counter()
+        net.start()
+        start_s = time.perf_counter() - t0
+        log(f"sync: start() {start_s:.1f} s (4 nodes in committee mode, node 3 durable)")
+        _lib.reset_launches()  # the counts of the main path's run from here
+        with GcClock() as gcc_live:
+            t0 = time.perf_counter()
+            inject(0, pre, net.nodes)
+            require(net.wait_all_committed(want_txs(0, pre), timeout=timeout),
+                    f"the 4 nodes did not commit the first {pre} txs in {timeout} s")
+            pre_wall = time.perf_counter() - t0
+            net.crash_node(3)
+            net.wipe_node(3)
+            live = net.live_nodes()
+            t0 = time.perf_counter()
+            inject(pre, corpus.n_txs, live)
+            require(net.wait_all_committed(want_txs(pre, corpus.n_txs), timeout=timeout),
+                    f"nodes 0-2 did not commit the other {corpus.n_txs - pre} txs in {timeout} s")
+            post_wall = time.perf_counter() - t0
+        log(f"sync: live commits {pre_wall:.2f} s before the crash, {post_wall:.2f} s after "
+            f"(3 nodes); node 3 crashed and wiped")
+        launches_before = dict(_lib.launches)
+        if dev.type == "cuda":
+            from torch.profiler import ProfilerActivity, profile
+
+            trace = profile(activities=[ProfilerActivity.CUDA])
+        with trace or contextlib.nullcontext(), GcClock() as gcc:
+            t0 = time.perf_counter()
+            node3 = net.revive_node(3)
+            revive_s = time.perf_counter() - t0
+            deadline = t0 + timeout
+            while not all(node3.tx_store.has_tx(h) for h in want_h):
+                require(node3.txflow.error is None, f"node 3's engine failed: {node3.txflow.error!r}")
+                require(time.perf_counter() < deadline,
+                        f"node 3 did not catch up in {timeout} s: {node3.sync_manager.snapshot()}")
+                time.sleep(0.005)
+            catchup_wall = time.perf_counter() - t0
+            while not node3.txflow.commits_drained():
+                require(time.perf_counter() < deadline, "node 3's commits never drained")
+                time.sleep(0.005)
+            torch.cuda.synchronize() if dev.type == "cuda" else None
+        sync_ident = node3.sync_manager._thread.ident
+        while node3.sync_manager.snapshot()["state"] != "idle":
+            require(time.perf_counter() < deadline + 30, "node 3's sync client never went idle")
+            time.sleep(0.01)
+        launches = dict(_lib.launches)
+        try:
+            device = trace_device_ms(trace) if trace is not None else {}
+        except Exception as e:  # noqa: BLE001 -- a measurement, never a check
+            device = {"error": repr(e)}
+        snaps = [n.sync_manager.snapshot() for n in net.nodes]
+        k6_by_node = [
+            {"launches": sum(v.batch_calls for v in n.sync_manager._verifiers.values()),
+             "rows": sum(v.batched_votes for v in n.sync_manager._verifiers.values()),
+             "host_loops": sum(v.scalar_calls for v in n.sync_manager._verifiers.values())}
+            for n in net.nodes]
+    finally:
+        for m, fns in plains.items():
+            for n, fn in fns:
+                setattr(m, n, fn)
+        timers.restore()
+        sync_manager.hashlib = sync_hashlib
+        net.stop()
+    require(verifier.staging_stats() is None, "the last engine's stop left the verifier open")
+    # -- the gate --
+    power = {v.address: v.voting_power for v in corpus.committee}
+    quorum = corpus.committee.quorum_power()
+    total = corpus.committee.total_voting_power()
+    live = net.nodes[:3]
+    states = []
+    for i, node in enumerate(net.nodes):
+        flow = node.txflow
+        for h, ok in zip(hashes, corpus.expect):
+            require(flow.is_tx_committed(h) == ok, f"node {i}: tx {h[:12]} committed != {ok}")
+            if not ok:
+                continue
+            cert = flow.load_commit(h)
+            require(cert is not None, f"node {i}: no certificate for {h[:12]}")
+            require(not any(cs.signature in corpus.bad_sigs for cs in cert.commits),
+                    f"node {i}: a corrupted vote in a certificate")
+            stake = sum(power[cs.validator_address] for cs in cert.commits)
+            require(3 * stake > 2 * total and stake >= quorum,
+                    f"node {i}: certificate of {stake} below 2/3 of the committee")
+        states.append(dict(node.app.state))
+    node3 = net.nodes[3]
+    for h in want_h:
+        require(node3.tx_store.load_cert_row(h) in {n.tx_store.load_cert_row(h) for n in live},
+                f"node 3's certificate row of {h[:12]} is no live node's")
+    want_keys = {tx.split(b"=")[0] for tx, ok in zip(corpus.txs, corpus.expect) if ok}
+    require(all(st == states[0] for st in states) and set(states[0]) == want_keys,
+            "the kvstore states differ between nodes or from the expected keys")
+    snap = snaps[3]
+    require(snap["applied"] == len(want_h) and snap["byzantine_strikes"] == 0
+            and snap["state"] == "idle",
+            f"node 3's sync client: {_sync_json(snap)}, want {len(want_h)} applied")
+    if snap["rotations"] == 0:
+        server = next(n for n in net.nodes if n.node_id == snap["last_server"])
+        k = node3.tx_store.seq_count()
+        require([h for _s, h in node3.tx_store.committed_range(0, k)]
+                == [h for _s, h in server.tx_store.committed_range(0, k)],
+                "node 3's commit-order log is not its server's prefix")
+    k6 = k6_by_node[3]
+    require(k6["launches"] > 0 and k6["host_loops"] == 0,
+            f"node 3's sync client: {k6['launches']} K6 launches, {k6['host_loops']} host loops")
+    require(plain_calls["n"] == 0, f"{plain_calls['n']} plain-version calls on the card")
+    host = timers.of(sync_ident)
+    applied = snap["applied"]
+    out = {
+        "validators": COM_VALS, "committee": COM_SIZE, "nodes": len(net.nodes),
+        "txs": corpus.n_txs, "txs_before_crash": pre, "votes": corpus.n_votes, "chunk": chunk,
+        "expected_txs": len(want_h), "sign_s": corpus.sign_s, "start_s": start_s,
+        "pre_crash_commit_wall_s": pre_wall, "post_crash_commit_wall_s": post_wall,
+        "live_gc_s": gcc_live.s,
+        "revive_s": revive_s, "catchup_wall_s": catchup_wall,
+        "sync_applied_txs_per_s": applied / catchup_wall,
+        "node3": _sync_json(snap),
+        "rounds": snap["rounds_ok"] + snap["rounds_failed"],
+        "requests": timers.n.get((sync_ident, "requests"), 0),
+        "responses": timers.n.get((id(node3.sync_manager), "responses"), 0),
+        "k6_launches": k6["launches"], "k6_rows": k6["rows"],
+        "k6_rows_per_launch": k6["rows"] / k6["launches"],
+        "k6_launches_all_clients": sum(k["launches"] for k in k6_by_node),
+        "live_clients": [dict(_sync_json(sn), k6_launches=k["launches"])
+                         for sn, k in zip(snaps[:3], k6_by_node[:3])],
+        "host_s": host,
+        "device_ms": device.get("total"),
+        "device_share": device["total"] / (catchup_wall * 1e3) if "total" in device else None,
+        "device_ms_by_name": device,
+        "gc_s": gcc.s, "gc_collections": gcc.collections,
+        "launches": {k: v - launches_before.get(k, 0) for k, v in launches.items()
+                     if v - launches_before.get(k, 0)},
+        "launches_whole_run": {k: v for k, v in launches.items() if v},
+    }
+    log(f"sync: node 3 revived in {revive_s:.2f} s, caught up {applied} txs in "
+        f"{catchup_wall:.2f} s = {out['sync_applied_txs_per_s']:.0f} txs/s; K6 {k6['launches']} "
+        f"launches of {out['k6_rows_per_launch']:.0f} rows; timeouts {snap['timeouts']}, "
+        f"rotations {snap['rotations']}; the card busy {out['device_ms']} ms = "
+        f"{out['device_share']} of the catch-up; host {host}; gc {gcc.s:.2f} s")
     return out
 
 
@@ -3509,6 +3920,14 @@ def main() -> int:
         log(json.dumps({"kernels": rows}))
         print(json.dumps({"ok": True, "device": device}))
         return 0
+    if sys.argv[1:] == ["--sync"]:
+        sp = sync_phase(torch.device("cuda"))
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "chip_smoke_sync.json"), "w") as f:
+            json.dump({"card": card, "sync": sp}, f, indent=1)
+        log(json.dumps({"sync": sp}))
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
     if sys.argv[1:] == ["--localnet"]:
         ln = localnet_phase(torch.device("cuda"))
         os.makedirs("chiprun_out", exist_ok=True)
@@ -3540,6 +3959,7 @@ def main() -> int:
     sl_again = serial_again(corpus, dev, sl_res, "serial slice again")
     lp = lanes_phase(dev)
     ln = localnet_phase(dev)
+    sp = sync_phase(dev)
     by_name = {"K1": "verify_tally", "K2": "verify_tally", "K3": "verify_tally", "K4": "tally"}
     for r in rows:
         r["launches"] = sl["launches"][by_name[r["name"][:2]]]
@@ -3573,7 +3993,9 @@ def main() -> int:
         r["launches"] = cm["k6_launches"]  # K6 launches of the committee path, all rungs
         # txf_verify alone also serves the LocalNet's cache path (all rungs)
         r["launches_by_path"] = {"committee": cm["k6_launches"],
-                                 "localnet": ln["verify_launches"]}
+                                 "localnet": ln["verify_launches"],
+                                 # node 3's catch-up client, one launch a response
+                                 "sync": sp["k6_launches"]}
     # the device's busy share of the committee steps: each step's K6 launch
     # at its kernel-row time (many launches in one window), over step time
     row_ms = {r["rung"]: r["ms"] for r in k6}
@@ -3619,7 +4041,7 @@ def main() -> int:
                    "serial_slice_again": sl_again, "lanes": lp,
                    "radix13_slice": s13, "int64_slice": wide,
                    "ab_k3_verify13": ab, "committee": cm, "mesh": mp, "threaded_mesh": thm,
-                   "localnet": ln},
+                   "localnet": ln, "sync": sp},
                   f, indent=1)
     for name, run in (("threaded_slice", ths), ("threaded_slice_commits_inline", ths_inline),
                       ("threaded_mesh", thm)):
@@ -3637,6 +4059,7 @@ def main() -> int:
         "k6_main_path_checked")}}))
     log(json.dumps(_mesh_json(mp)))
     log(json.dumps({"localnet": ln}))
+    log(json.dumps({"sync": sp}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

@@ -44,6 +44,12 @@ GOSSIP_MODULES = (
     "node.id", "node.node", "node.localnet", "reactors.mempool_reactor",
     "reactors.txvote_reactor", "privval.file", "privval.signer",
 )
+# the catch-up sync slice: the durable store, the client, the server, and
+# the node and net that wire them
+SYNC_MODULES = (
+    "store.db", "state.store", "sync.config", "sync.wire", "sync.reactor", "sync.manager",
+    "node.node", "node.localnet",
+)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -56,9 +62,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.strip().splitlines()
     assert int(lines[-1]) >= 75  # every module imported
-    # the gossip and node slice: each of its modules is among them
+    # the gossip and node slice, and the sync slice: each of their modules
+    # is among them
     names = set(lines[-2].split())
-    for mod in GOSSIP_MODULES:
+    for mod in GOSSIP_MODULES + SYNC_MODULES:
         assert "txflow_tpu_torch." + mod in names, mod
 
 

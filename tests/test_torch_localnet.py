@@ -10,8 +10,9 @@ one shared verifier with the verdict cache), against the JAX package
   corrupted vote in a certificate, and the kvstore maps equal across the
   nodes and to the JAX ``LocalNet``'s on the same corpus (JAX side
   ``use_device_verifier=False``, ``health=False``, ``sync=False``);
-- a mixed net of two JAX nodes and two port nodes over in-memory pipes
-  commits the same set on all four;
+- a mixed net of two JAX nodes and two port nodes over in-memory pipes,
+  catch-up sync on at both packages' defaults, commits the same set on all
+  four, and every sync channel's STATUS advert crosses the packages;
 - a clean stop leaves no thread behind, and the last engine's stop closes
   the shared verifier.
 Commit order differs between nodes and runs under gossip, so parity is
@@ -78,7 +79,9 @@ def wait_threads_gone(before, timeout=10.0):
 
 def test_localnet_commits_every_broadcast_tx_on_every_node():
     before = set(threading.enumerate())
-    net, verifier = port_net(seeds())
+    # the counts below are the engines' own decisions: a catch-up sync
+    # apply would commit a tx without one, so sync is off here
+    net, verifier = port_net(seeds(), sync=False)
     txs = [b"ln%d=v%d" % (i, i) for i in range(6)]
     net.start()
     try:
@@ -190,8 +193,7 @@ def test_mixed_jax_and_port_nodes_commit_the_same_set():
     s = seeds(seed=99)
     jpvs = [jtypes.MockPV(x) for x in s]
     jnet = jnode.LocalNet(4, config=j_test_config(), use_device_verifier=False,
-                          priv_vals=jpvs, n_nodes=2, health=False, sync=False,
-                          index_txs=False)
+                          priv_vals=jpvs, n_nodes=2, health=False, index_txs=False)
     ppvs = [ptypes.MockPV(x) for x in s]
     vals = ptypes.ValidatorSet([ptypes.Validator.from_pub_key(pv.get_pub_key(), 10)
                                 for pv in ppvs])
@@ -227,6 +229,14 @@ def test_mixed_jax_and_port_nodes_commit_the_same_set():
         assert all(st == states[0] for st in states)
         assert set(states[0]) == {tx.split(b"=")[0] for tx in txs}
         assert all(n.switch.n_peers() == 3 for n in jnet.nodes + pnodes)
+        # each node's sync client heard the STATUS advert of all three peers
+        names = {n.switch.node_id for n in jnet.nodes + pnodes}
+        for n in jnet.nodes + pnodes:
+            deadline = time.monotonic() + 45
+            while set(n.sync_manager._servable_adverts()) != names - {n.switch.node_id}:
+                assert time.monotonic() < deadline, "a sync advert never crossed"
+                time.sleep(0.01)
+            assert n.sync_manager.snapshot()["byzantine_strikes"] == 0
     finally:
         for n in pnodes:
             n.stop()

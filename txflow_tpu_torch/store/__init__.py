@@ -1,6 +1,7 @@
-"""Storage: the in-memory KV backend and the fast-path TxStore."""
+"""Storage: the in-memory and durable KV backends and the fast-path
+TxStore."""
 
-from .db import DB, MemDB
+from .db import DB, FileDB, MemDB
 from .tx_store import TxStore
 
-__all__ = ["DB", "MemDB", "TxStore"]
+__all__ = ["DB", "FileDB", "MemDB", "TxStore"]

@@ -1,10 +1,13 @@
-"""Catch-up sync: a lagging node fetches a serving node's committed range
-through the sync wire format, re-verifies every certificate (one K6 launch
-per epoch group in committee mode) and applies it. The serving side is a
-plain function; the fetch loop and its network layer are not ported yet."""
+"""Catch-up sync: wiped, lagging and freshly joined nodes recover the
+committed set from their peers over the sync channel. The reactor serves
+ranges of the commit-order log and carries adverts and responses; the
+manager detects lag, fetches with a bounded window, re-verifies every
+certificate (one K6 launch per committee group in committee mode) and
+applies it."""
 
 from .config import SyncConfig
 from .manager import SyncError, SyncManager
-from .reactor import serve_range
+from .reactor import CHANNEL_SYNC, SyncReactor, serve_range
 
-__all__ = ["SyncConfig", "SyncError", "SyncManager", "serve_range"]
+__all__ = ["SyncConfig", "SyncError", "SyncManager", "SyncReactor", "CHANNEL_SYNC",
+           "serve_range"]

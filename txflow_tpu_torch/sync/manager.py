@@ -1,26 +1,59 @@
-"""SyncManager: the catch-up client's certificate re-check and apply
-(counterpart of ``txflow_tpu/sync/manager.py``, trimmed to the verify and
-apply path: the fetch loop, request window, timeouts, strikes, bans,
-adverts and fallback state are the network layer, not ported yet).
+"""SyncManager: the catch-up client state machine (counterpart of
+``txflow_tpu/sync/manager.py``).
 
-Every fetched certificate is re-verified before it is applied through the
-engine's commit seam (``TxFlow.apply_synced_commit``): never trusted,
-always re-derived. The validator set for a height is the one the client
-has on record (state store, or pinned earlier); a server snapshot that
-contradicts a record is Byzantine. With no record for a height, the
+A node detects it is behind from its peers' STATUS adverts (commit-order
+seq counts, sent by every node's SyncReactor), selects a serving peer --
+the highest advert among connected peers it has not banned -- and fetches
+ranges of committed txs and their certificates with a bounded in-flight
+window. Every fetched certificate is re-verified before it is applied
+through the engine's commit seam (``TxFlow.apply_synced_commit``): never
+trusted, always re-derived. The validator set for a height is the one the
+client has on record (state store, or pinned earlier); a server snapshot
+that contradicts a record is byzantine. With no record for a height, the
 client verifies under the server's snapshot and accepts it only when the
-certificate's proven signers carry a 2/3 quorum of the nearest set it
-does trust (light-client-style endorsement), then pins it.
+certificate's proven signers carry a 2/3 quorum of the nearest set it does
+trust (light-client-style endorsement), then pins it.
 
-In committee mode each certificate tallies against the committee that
-the schedule derives from the full set in force at its vote height, and
-a response's certificates verify as one ``BatchCertVerifier`` call (one
-K6 launch) per committee.
+In committee mode each certificate tallies against the committee that the
+schedule derives from the full set in force at its vote height, and a
+response's certificates verify as one ``BatchCertVerifier`` call (one K6
+launch) per committee, on ``device``.
+
+Failure handling, as in the JAX client:
+
+- a per-request timeout is a stall strike, then jittered exponential
+  backoff (``random.Random(config.seed)``) and peer rotation;
+- at most ``window`` requests are outstanding;
+- a short response is byzantine only when it is a provable lie: the
+  server's own advert covers the range and it stopped with byte headroom
+  below ``max_resp_bytes`` and below ``max_range``. Honest shortness (the
+  byte or count cap, or an advert lowered for missing rows) resumes from
+  the end of what was served;
+- a byzantine server (forged certificate, wrong epoch snapshot,
+  mixed-height certificate, provably truncated range, tx bytes that do not
+  hash to the certified tx_hash, a wrong start) is banned locally for
+  ``byzantine_ban`` seconds, its advert dropped, and rotated away from;
+  nothing is applied before verification;
+- after ``max_rounds`` consecutive failed rounds the client enters the
+  fallback state and probes again after ``fallback_cooldown``.
+
+Ranges are fetched in one server's seq space a round and applied in that
+order; entries already committed locally are skipped before verification.
+A node that lags but was not wiped tries a tail round near its own count
+first and walks the whole log only when that round closes no gap.
+
+Left out, with the layer each belongs to: the peer scoreboard (health),
+the node-wide byzantine ledger, the metrics registry and the tracer's
+spans. ``stats`` and ``snapshot()`` carry the counters.
 """
 
 from __future__ import annotations
 
 import hashlib
+import queue as _queue
+import random
+import threading
+import time
 
 import numpy as np
 
@@ -33,6 +66,18 @@ from ..types.validator import ValidatorSet
 from ..verifier import ScalarVoteVerifier, resolve_device
 from . import wire
 from .config import SyncConfig
+from .reactor import CHANNEL_SYNC
+
+# the clock of deadlines, bans and cooldowns (a module name, so a test can
+# drive the state machine on a clock of its own)
+monotonic = time.monotonic
+
+# states
+STATE_IDLE = 0
+STATE_SYNCING = 1
+STATE_FALLBACK = 2
+
+_STATE_NAMES = {STATE_IDLE: "idle", STATE_SYNCING: "syncing", STATE_FALLBACK: "fallback"}
 
 
 class SyncError(Exception):
@@ -53,6 +98,7 @@ class SyncManager:
         chain_id: str,
         tx_store,
         txflow,
+        switch=None,
         state_store=None,
         config: SyncConfig | None = None,
         committee=None,  # committee.CommitteeSchedule | None (full-set mode)
@@ -62,6 +108,7 @@ class SyncManager:
         self.chain_id = chain_id
         self.tx_store = tx_store
         self.txflow = txflow
+        self.switch = switch
         self.state_store = state_store
         self.config = config or SyncConfig()
         self.committee = committee
@@ -71,10 +118,288 @@ class SyncManager:
         # the field of those batches' verify kernel (ops/field.py; None
         # reads TXFLOW_FE_RADIX now)
         self.fe_radix = field.resolve(fe_radix)
+        self._rng = random.Random(self.config.seed)
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        # adverts and bans: written by the peers' receive threads and the
+        # strike path, read by the chooser
+        self._mtx = threading.Lock()
+        # peer node_id -> (advertised seq_count, advertised height)
+        self._adverts: dict[str, tuple[int, int]] = {}
+        self._banned: dict[str, float] = {}  # node_id -> ban expiry
+        self._resp_q: _queue.Queue = _queue.Queue()
+        self._req_id = 0
         self._verifiers: dict[tuple, ScalarVoteVerifier] = {}
         # height -> the set the client trusts there: state-store records
-        # plus sets learned through endorsement
+        # plus sets learned through endorsement (sync thread only)
         self._trusted_vals: dict[int, ValidatorSet] = {}
+        self.state = STATE_IDLE
+        self._consec_failed_rounds = 0
+        self._backoff_level = 0
+        self._cooldown_until = 0.0
+        self.last_server: str | None = None
+        self.last_error = ""
+        self.stats = {
+            "rounds_ok": 0,
+            "rounds_failed": 0,
+            "fetched": 0,
+            "applied": 0,
+            "verify_failures": 0,
+            "byzantine_strikes": 0,
+            "timeouts": 0,
+            "rotations": 0,
+            "fallbacks": 0,
+            "served": 0,
+        }
+
+    # -- lifecycle --
+
+    def start(self) -> None:
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._run, name="sync-manager", daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+
+    # -- reactor callbacks (the peers' receive threads) --
+
+    def note_status(self, node_id: str, seq_count: int, height: int) -> None:
+        with self._mtx:
+            self._adverts[node_id] = (seq_count, height)
+
+    def note_peer_gone(self, node_id: str) -> None:
+        with self._mtx:
+            self._adverts.pop(node_id, None)
+
+    def note_response(self, node_id: str, *resp) -> None:
+        self._resp_q.put((node_id, resp))
+
+    def note_served(self, n_entries: int) -> None:
+        self.stats["served"] += n_entries
+
+    # -- introspection --
+
+    def lag(self) -> int:
+        local = self.tx_store.seq_count()
+        best = self._best_advert()
+        return max(0, best - local)
+
+    def _servable_adverts(self) -> dict[str, tuple[int, int]]:
+        """Adverts of the peers the client would select: a banned peer's
+        inflated seq count must not keep lag() above the threshold."""
+        now = monotonic()
+        with self._mtx:
+            return {n: a for n, a in self._adverts.items() if self._banned.get(n, 0.0) <= now}
+
+    def _best_advert(self) -> int:
+        adverts = self._servable_adverts()
+        return max((seq for seq, _h in adverts.values()), default=0)
+
+    def snapshot(self) -> dict:
+        adverts = self._servable_adverts()
+        with self._mtx:
+            banned = [n for n, t in self._banned.items() if t > monotonic()]
+        return {
+            "state": _STATE_NAMES.get(self.state, str(self.state)),
+            "lag": self.lag(),
+            "local_seq": self.tx_store.seq_count(),
+            "best_advert": max((s for s, _ in adverts.values()), default=0),
+            "peers_advertising": len(adverts),
+            "banned_peers": banned,
+            "last_server": self.last_server,
+            "last_error": self.last_error,
+            **self.stats,
+        }
+
+    # -- the state machine --
+
+    def _run(self) -> None:
+        cfg = self.config
+        while not self._stop.wait(cfg.poll_interval):
+            self._expire_bans()
+            now = monotonic()
+            if self.state == STATE_FALLBACK and now < self._cooldown_until:
+                continue
+            if self.lag() < cfg.lag_threshold:
+                self.state = STATE_IDLE
+                self._consec_failed_rounds = 0
+                self._backoff_level = 0
+                continue
+            self.state = STATE_SYNCING
+            applied = self._sync_round()
+            if self._stop.is_set():
+                return
+            if applied > 0:
+                self.stats["rounds_ok"] += 1
+                self._consec_failed_rounds = 0
+                self._backoff_level = 0
+                continue
+            self._consec_failed_rounds += 1
+            self.stats["rounds_failed"] += 1
+            if self._consec_failed_rounds >= cfg.max_rounds:
+                # no peer can serve us: fall back, probe again later
+                self.state = STATE_FALLBACK
+                self.stats["fallbacks"] += 1
+                self._cooldown_until = monotonic() + cfg.fallback_cooldown
+                self._consec_failed_rounds = 0
+                self._backoff_level = 0
+            else:
+                self._sleep_backoff()
+
+    def _expire_bans(self) -> None:
+        now = monotonic()
+        with self._mtx:
+            for nid in [n for n, t in self._banned.items() if t <= now]:
+                del self._banned[nid]
+
+    def _sleep_backoff(self) -> None:
+        cfg = self.config
+        base = min(cfg.backoff_base * (2.0**self._backoff_level), cfg.backoff_cap)
+        jitter = 1.0 + cfg.backoff_jitter * (2.0 * self._rng.random() - 1.0)
+        self._backoff_level += 1
+        self._stop.wait(base * jitter)
+
+    def _select_peer(self):
+        """The connected, unbanned peer with the highest advert above our
+        own count (the first such peer on a tie)."""
+        adverts = self._servable_adverts()
+        local = self.tx_store.seq_count()
+        best, best_key = None, None
+        for peer in self.switch.peers():
+            adv = adverts.get(peer.node_id)
+            if adv is None or adv[0] <= local:
+                continue
+            # the JAX client's key carries the scoreboard's score second
+            # (no scoreboard here: 0.0 for every peer)
+            key = (adv[0], 0.0)
+            if best_key is None or key > best_key:
+                best, best_key = peer, key
+        return best, (best_key[0] if best_key else 0)
+
+    def _sync_round(self) -> int:
+        """One fetch round against one serving peer. Returns the txs newly
+        applied (0: the round failed or closed no gap)."""
+        cfg = self.config
+        peer, target = self._select_peer()
+        if peer is None:
+            self.last_error = "no servable peer"
+            return 0
+        self.last_server = peer.node_id
+        local = self.tx_store.seq_count()
+        # a tail round first, near our own count; if the orders diverged
+        # so far that it closes nothing, the next round walks from 0
+        start = max(0, local - cfg.batch) if self._consec_failed_rounds == 0 else 0
+        try:
+            return self._fetch_apply(peer, start, target)
+        except SyncError as e:
+            self.last_error = str(e)
+            self._strike(peer, e)
+            return 0
+
+    def _strike(self, peer, err: SyncError) -> None:
+        cfg = self.config
+        self.stats["rotations"] += 1
+        if err.byzantine:
+            self.stats["byzantine_strikes"] += 1
+            with self._mtx:
+                self._banned[peer.node_id] = monotonic() + cfg.byzantine_ban
+                # a proven liar's advert is worthless (it re-adverts on its
+                # next status tick, ignored while banned)
+                self._adverts.pop(peer.node_id, None)
+        else:
+            self.stats["timeouts"] += 1
+
+    # -- fetch, verify, apply --
+
+    def _next_req_id(self) -> int:
+        self._req_id += 1
+        return self._req_id
+
+    def _fetch_apply(self, peer, cursor: int, target: int) -> int:
+        """Windowed range fetch from ``peer`` over [cursor, target) of its
+        seq space, each response verified and applied in range order.
+        Raises SyncError on a stall or byzantine evidence."""
+        cfg = self.config
+        pending: dict[int, tuple[int, int, float]] = {}  # req_id -> (start, count, sent)
+        ready: dict[int, tuple] = {}  # start -> (served, entries, snapshots)
+        next_start = cursor
+        applied = 0
+        # drain stale responses of earlier rounds
+        while not self._resp_q.empty():
+            try:
+                self._resp_q.get_nowait()
+            except _queue.Empty:
+                break
+        while (cursor < target or pending) and not self._stop.is_set():
+            while len(pending) < cfg.window and next_start < target:
+                count = min(cfg.batch, cfg.max_range, target - next_start)
+                rid = self._next_req_id()
+                if not peer.try_send(CHANNEL_SYNC, wire.encode_range_req(rid, next_start, count)):
+                    raise SyncError(f"send to {peer.node_id} failed")
+                pending[rid] = (next_start, count, monotonic())
+                next_start += count
+            try:
+                nid, resp = self._resp_q.get(timeout=self._wait_budget(pending))
+            except _queue.Empty:
+                raise SyncError(f"range request to {peer.node_id} timed out")
+            if nid != peer.node_id:
+                continue  # a stale response of a rotated-away server
+            req_id, start, advert, entries, snapshots = resp
+            meta = pending.pop(req_id, None)
+            if meta is None:
+                continue  # a duplicate or stale req_id
+            r_start, r_count, _t_sent = meta
+            if start != r_start:
+                raise SyncError(
+                    f"{peer.node_id} answered start {start} for {r_start}", byzantine=True
+                )
+            served = len(entries)
+            served_bytes = sum(len(c) + len(t) for _h, c, t in entries)
+            # short is a provable lie only when the server's own advert
+            # covers the range and it stopped with byte headroom below a
+            # byte-capped honest response (which always serves >=
+            # max_resp_bytes) and below the count cap
+            expected = min(r_count, max(0, advert - r_start))
+            if served < expected and served_bytes < cfg.max_resp_bytes and served < cfg.max_range:
+                raise SyncError(
+                    f"truncated range from {peer.node_id}: "
+                    f"{served} entries, expected {expected} "
+                    f"with byte headroom",
+                    byzantine=True,
+                )
+            if advert < target:
+                # the server can serve less than this round planned (rows
+                # lost, or it advertised more than it can prove): shrink
+                # the walk instead of demanding it
+                target = advert
+            rem_start = r_start + served
+            rem_count = min(r_count - served, target - rem_start)
+            if rem_count > 0:
+                # honest short response (byte or count cap): resume the
+                # rest of this range -- progress, not a strike
+                rid = self._next_req_id()
+                if not peer.try_send(CHANNEL_SYNC, wire.encode_range_req(rid, rem_start, rem_count)):
+                    raise SyncError(f"send to {peer.node_id} failed")
+                pending[rid] = (rem_start, rem_count, monotonic())
+            ready[r_start] = (served, entries, snapshots)
+            # apply contiguously from the cursor: the commit-order log
+            # extends in the server's order
+            while cursor in ready:
+                served, entries, snapshots = ready.pop(cursor)
+                applied += self._verify_apply(peer.node_id, entries, snapshots)
+                cursor += served
+        return applied
+
+    def _wait_budget(self, pending: dict) -> float:
+        """Time until the oldest outstanding request times out."""
+        if not pending:
+            return self.config.request_timeout
+        oldest = min(t for _s, _c, t in pending.values())
+        return max(0.01, oldest + self.config.request_timeout - monotonic())
 
     def apply_range_resp(self, peer_id: str, frame: bytes) -> tuple[int, int, int]:
         """Decode one RANGE_RESP frame from ``peer_id``, verify and apply
@@ -132,7 +457,10 @@ class SyncManager:
             self.state_store is not None
             and self.state_store.load_validators(height) is None
         ):
-            self.state_store.save_validators(height, vals)
+            try:
+                self.state_store.save_validators(height, vals)
+            except OSError:
+                pass  # the durable pin is best-effort; the cache carries on
 
     def _verifier_for(self, vals: ValidatorSet) -> ScalarVoteVerifier:
         fp = _set_fingerprint(vals)
@@ -253,6 +581,7 @@ class SyncManager:
                 quorum=vals.quorum_power(),
             )
             if not bool(res.valid.all()):
+                self.stats["verify_failures"] += 1
                 raise SyncError(
                     f"{nid} served a certificate with an invalid signature",
                     byzantine=True,
@@ -263,6 +592,7 @@ class SyncManager:
                     byzantine=True,
                 )
             if not bool(res.maj23.all()):
+                self.stats["verify_failures"] += 1
                 raise SyncError(
                     f"{nid} served a certificate below 2/3+ stake",
                     byzantine=True,
@@ -290,6 +620,7 @@ class SyncManager:
                 self._learn_vals(p[5], p[7])
         # verified: apply in the server's order through the commit seam
         applied = 0
+        self.stats["fetched"] += sum(1 for p in parsed if p is not None)
         for p in parsed:
             if p is None:
                 continue
@@ -299,4 +630,5 @@ class SyncManager:
                 vs.add_verified_vote(v)
             if self.txflow.apply_synced_commit(vs, votes, tx):
                 applied += 1
+        self.stats["applied"] += applied
         return applied
